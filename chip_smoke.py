@@ -16,9 +16,20 @@ Phases, each printing one JSON line with its elapsed seconds:
                counts must be 1 (NMS) and 3 (auction) per frame
   cpu_vs_card  8 frames in fp32 on the CPU (plain versions) and on the card
                (kernels): track ids equal, keypoints within 1e-2 px
-Then a line {"kernels": [...]} with each kernel's launches, error, times
-and bound, and last {"ok": true, "device": {...}}. Any failure raises and
-exits non-zero before that line; a hang is cut by faulthandler.
+  chunk_path   PosePipeline.process_chunk on the card at the headline
+               configuration (yolov8n-pose, 640, bf16, raw u8 ingest,
+               chunk K = 128 frames of 1280x720, 6 people): one warm-up and
+               two timed chunks, one bulk copy of the outputs per chunk, then
+               fetch_outputs per frame; launches per chunk must be exactly
+               nms_keep 1 (grid = K), tracker_chunk 1 and auction 0. Also
+               times Kernel 1 on the chunk's own candidates (B = 128).
+  chunk_cpu_vs_card  the chunk path in fp32 at K = 8 on the CPU (plain
+               versions) and on the card (Kernels 1 and 3): track ids
+               equal, keypoints within 1e-2 px
+Then a line {"kernels": [...]} with each kernel's launches (summed over
+the per-frame and the chunk path's runs), error, times and bound, and last
+{"ok": true, "device": {...}}. Any failure raises and exits non-zero
+before that line; a hang is cut by faulthandler.
 """
 import faulthandler
 import json
@@ -30,6 +41,9 @@ import time
 LIMIT_S = 840          # hard stop for a hung run
 FRAMES = 16
 CMP_FRAMES = 8
+CHUNK = 128            # frames per chunk, the JAX package's headline
+TIMED_CHUNKS = 2
+CMP_CHUNK = 8
 WIDTH, HEIGHT = 1280, 720
 N_PERSONS = 6
 SEED = 7
@@ -138,17 +152,120 @@ def bound(nbytes, ops):
                                        else "operations")
 
 
+def chunk_case(dev, streams, seed=SEED):
+    """Kernel 3's inputs on the card: `streams` streams of K = CHUNK frames
+    of seeded detections from the synthetic scene (dropouts, a lost and
+    recovered person, near-duplicates, empty and crowded frames), holes in
+    the advance mask, and a fresh pool of T = 128 slots, D = 64."""
+    import torch
+    from posebyte_tpu_torch.core.structs import Detections, TrackerState
+    from posebyte_tpu_torch.ops.tracker_chunk import _stack
+    from posebyte_tpu_torch.utils.synthetic import tracker_chunk_case
+    dets, advs = [], []
+    for s in range(streams):
+        arrays, adv = tracker_chunk_case(seed + s, CHUNK, 64, n_persons=6,
+                                         crowd=40)
+        dets.append(Detections(*(torch.from_numpy(a).to(dev)
+                                 for a in arrays)))
+        advs.append(torch.from_numpy(adv).to(dev))
+    state = TrackerState.init(128, 64, dev)
+    return (_stack([state] * streams), _stack(dets), torch.stack(advs))
+
+
+def chunk_diff(got, want):
+    """(integer mismatches, max abs float difference) between two
+    (state, outs) results of the tracker chunk."""
+    import dataclasses
+    (gs, go), (ws, wo) = got, want
+    pairs = [(getattr(gs, f.name), getattr(ws, f.name))
+             for f in dataclasses.fields(gs)] + [(go[k], wo[k]) for k in wo]
+    mism, err = 0, 0.0
+    for g, w in pairs:
+        if g.dtype.is_floating_point:
+            err = max(err, float((g - w).abs().max()))
+        else:
+            mism += int((g != w).sum())
+    return mism, err
+
+
+def tracker_chunk_work(dets, adv, outs, T=128):
+    """(bytes, float32 operations) of one chunk on these inputs: each
+    input read once (detections, mask, initial state), each output written
+    once (frame outputs, final state); per frame, ~30 operations for the
+    gate of each active-track x valid-detection pair plus ~8 per keypoint
+    of the OKS (17) and torso OKS (4) on each such pair, and ~20 per track
+    pair of the dedup. The active tracks entering a frame are those of the
+    last advanced frame's output."""
+    K, D = dets.scores.shape[-2:]
+    state_bytes = T * (51 + 34 + 1) * 4 + T * 6 * 4 + T + 8 + D * 4
+    nbytes = (dets.poses.numel() * 4 + dets.scores.numel() * 4
+              + dets.valid.numel() + adv.numel() + 2 * state_bytes
+              + sum(v.numel() * v.element_size() for v in outs.values()))
+    na = outs["num_active"].reshape(-1, K).tolist()
+    nv = dets.valid.reshape(-1, K, D).sum(-1).tolist()
+    ad = adv.reshape(-1, K).tolist()
+    ops = 0
+    for s_na, s_nv, s_ad in zip(na, nv, ad):
+        active = 0
+        for k in range(K):
+            ops += active * s_nv[k] * (30 + 8 * (17 + 4)) + 20 * active ** 2
+            if s_ad[k]:
+                active = s_na[k]
+    return nbytes, ops
+
+
+def tracker_chunk_row(dev):
+    """Kernel 3 against its plain version at S = 1 and S = 3 streams
+    (integer outputs and state equal, floats within 1e-5 px + 1e-6
+    relative), and its times."""
+    import torch
+    from posebyte_tpu_torch.core.config import TrackerConfig
+    from posebyte_tpu_torch.ops import tracker_chunk as TC
+    cfg = TrackerConfig()
+    mism, err, emitted = 0, 0.0, 0
+    for streams in (1, 3):
+        state, dets, adv = chunk_case(dev, streams)
+        got = TC.tracker_chunk_cuda(state, dets, cfg, adv)
+        want = TC.tracker_chunk_plain(state, dets, cfg, adv)
+        torch.cuda.synchronize()
+        m, e = chunk_diff(got, want)
+        mism, err = mism + m, max(err, e)
+        emitted += int(got[1]["emit"].sum())
+        if m or e > 1e-5 + 1e-6 * 1280:
+            raise SystemExit(f"tracker_chunk at S={streams}: {m} integer "
+                             f"mismatches, float error {e}")
+    state, dets, adv = chunk_case(dev, 1)
+    one = (TC._pick(state, 0), TC._pick(dets, 0), adv[0])
+    outs = TC.tracker_chunk_cuda(*one[:2], cfg, one[2])[1]
+    nbytes, ops = tracker_chunk_work(dets, adv, outs)
+    b_ms, b_by = bound(nbytes, ops)
+    ms = cuda_ms(lambda: TC.tracker_chunk_cuda(*one[:2], cfg, one[2]), 20)
+    return {
+        "name": "tracker_chunk", "route": "cuda",
+        "source": "posebyte_tpu_torch/csrc/tracker_chunk.cu",
+        "replaces": "posebyte_tpu/ops/pallas_tracker.py:648",
+        "mismatches": mism, "max_abs_err": err,
+        "ms": ms, "ms_per_frame": ms / CHUNK,
+        "plain_ms": cuda_ms(lambda: TC.tracker_chunk_plain(
+            *one[:2], cfg, one[2]), 1),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "shape": f"K={CHUNK},T=128,D=64,S=1 and 3,emitted={emitted}",
+        "bytes": nbytes, "ops": ops}
+
+
 def phase_kernels(t0):
     import numpy as np
     import torch
     from posebyte_tpu_torch.ops import assignment as A
     from posebyte_tpu_torch.ops import nms as N
+    from posebyte_tpu_torch.ops import tracker_chunk as TC
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
     rows = {}
     start = {"nms_keep": N.nms_keep_cuda.launches,
-             "auction": A.auction_assign_cuda.launches}
+             "auction": A.auction_assign_cuda.launches,
+             "tracker_chunk": TC.tracker_chunk_cuda.launches}
 
     # ---- Kernel 1: NMS keep mask, N = 256 --------------------------------
     mism, sweeps = 0, 0
@@ -200,12 +317,17 @@ def phase_kernels(t0):
         "shape": f"R={R},C={Cc}", "rounds": rounds, "bytes": nbytes,
         "ops": ops}
 
+    # ---- Kernel 3: tracker chunk, K = 128, T = 128, D = 64 -------------
+    rows["tracker_chunk"] = tracker_chunk_row(dev)
+
     done = {"nms_keep": N.nms_keep_cuda.launches,
-            "auction": A.auction_assign_cuda.launches}
+            "auction": A.auction_assign_cuda.launches,
+            "tracker_chunk": TC.tracker_chunk_cuda.launches}
     emit("kernels", t0, kernels=[
         {"name": r["name"], "launches": done[k] - start[k],
-         "mismatches": r["mismatches"],
-         "kernel_ms": r["ms"], "plain_ms": r["plain_ms"],
+         "mismatches": r["mismatches"], "max_abs_err": r["max_abs_err"],
+         "kernel_ms": r["ms"], "ms_per_frame": r.get("ms_per_frame"),
+         "plain_ms": r["plain_ms"],
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "shape": r["shape"]} for k, r in rows.items()])
     bad = {k: r["mismatches"] for k, r in rows.items() if r["mismatches"]}
@@ -232,12 +354,14 @@ def phase_main_path(t0, params, rows):
     from posebyte_tpu_torch.core import PipelineConfig
     from posebyte_tpu_torch.ops.assignment import auction_assign_cuda
     from posebyte_tpu_torch.ops.nms import nms_keep_cuda
+    from posebyte_tpu_torch.ops.tracker_chunk import tracker_chunk_cuda
     from posebyte_tpu_torch.pipeline import PosePipeline
 
     gts, frames = make_frames(FRAMES)
     pipe = PosePipeline(PipelineConfig(), params)     # the card, bf16
     nms_keep_cuda.launches = 0
     auction_assign_cuda.launches = 0
+    tracker_chunk_cuda.launches = 0
     dets, tracks, ms = [], [], []
     for fr in frames:
         t = time.perf_counter()
@@ -251,7 +375,8 @@ def phase_main_path(t0, params, rows):
                     .all()):
                 raise SystemExit("non-finite track output")
     launches = {"nms_keep": nms_keep_cuda.launches,
-                "auction": auction_assign_cuda.launches}
+                "auction": auction_assign_cuda.launches,
+                "tracker_chunk": tracker_chunk_cuda.launches}
     # accuracy: every person of the last frame has a track within 10 px
     kp = np.stack([r.keypoints[:, :2] for r in res]) if res else \
         np.zeros((0, 17, 2), np.float32)
@@ -264,9 +389,10 @@ def phase_main_path(t0, params, rows):
          peak_mem_mb=torch.cuda.max_memory_allocated() / 2**20)
     for k, r in rows.items():
         r["launches"] = launches[k]
-    if launches != {"nms_keep": FRAMES, "auction": 3 * FRAMES}:
+    if launches != {"nms_keep": FRAMES, "auction": 3 * FRAMES,
+                    "tracker_chunk": 0}:
         raise SystemExit(f"main path launch counts {launches}, expected "
-                         f"{FRAMES} and {3 * FRAMES}")
+                         f"{FRAMES}, {3 * FRAMES} and 0")
     if max(errs) > 10.0:
         raise SystemExit(f"tracks miss the synthetic people: {errs}")
 
@@ -295,6 +421,133 @@ def phase_cpu_vs_card(t0, params):
          max_kp_diff_px=kp_err)
     if not ids_equal or kp_err > 1e-2:
         raise SystemExit("the card and the CPU disagree")
+
+
+def make_chunks(n_chunks, k):
+    """n_chunks consecutive chunks [k, H, W, 3] of one synthetic scene and
+    the people's poses in each chunk's last frame."""
+    import numpy as np
+    from posebyte_tpu_torch.utils.synthetic import SyntheticScene, \
+        render_frame
+    scene = SyntheticScene(N_PERSONS, WIDTH, HEIGHT, seed=SEED)
+    for _ in range(n_chunks):
+        gts = [scene.step() for _ in range(k)]
+        yield np.stack([render_frame(g, WIDTH, HEIGHT) for g in gts]), gts[-1]
+
+
+def track_errors(res, gt):
+    """Per person of `gt`, the mean keypoint distance to the nearest
+    track (px); inf when there is no track."""
+    import numpy as np
+    kp = np.stack([r.keypoints[:, :2] for r in res]) if res else \
+        np.zeros((0, 17, 2), np.float32)
+    return [float(np.abs(kp - g[None, :, :2]).mean(axis=(1, 2)).min())
+            if len(kp) else float("inf") for g in gt]
+
+
+def phase_chunk_path(t0, params, rows):
+    import numpy as np
+    import torch
+    from posebyte_tpu_torch.core import PipelineConfig
+    from posebyte_tpu_torch.models.yolo_pose import forward_heads
+    from posebyte_tpu_torch.ops.assignment import auction_assign_cuda
+    from posebyte_tpu_torch.ops.decode import decode_topk
+    from posebyte_tpu_torch.ops.nms import nms_keep_cuda
+    from posebyte_tpu_torch.ops.preprocess import letterbox_flat_nhwc
+    from posebyte_tpu_torch.ops.tracker_chunk import tracker_chunk_cuda
+    from posebyte_tpu_torch.pipeline import PosePipeline
+
+    cfg = PipelineConfig()                            # the card, bf16
+    pipe = PosePipeline(cfg, params)
+    torch.cuda.reset_peak_memory_stats()
+    kernels = {"nms_keep": nms_keep_cuda, "auction": auction_assign_cuda,
+               "tracker_chunk": tracker_chunk_cuda}
+    for fn in kernels.values():
+        fn.launches = 0
+    ms, per_chunk, tracks, errs = [], [], [], []
+    for frames, gt in make_chunks(1 + TIMED_CHUNKS, CHUNK):
+        before = {k: fn.launches for k, fn in kernels.items()}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        outs = pipe.process_chunk(frames)
+        res = pipe.fetch_chunk_outputs(outs, WIDTH, HEIGHT)
+        ms.append((time.perf_counter() - t) * 1e3)
+        per_chunk.append({k: fn.launches - before[k]
+                          for k, fn in kernels.items()})
+        tracks.append([len(r) for r in res])
+        errs = track_errors(res[-1], gt)
+        for r in res:
+            for tr in r:
+                if not (np.isfinite(tr.keypoints).all()
+                        and np.isfinite(tr.bbox).all()):
+                    raise SystemExit("non-finite track output")
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**20
+
+    # Kernel 1 on this chunk's own candidates (B = 128)
+    dc = pipe.config.detector
+    with torch.inference_mode():
+        flat = pipe.stage_chunk(frames)
+        imgs = letterbox_flat_nhwc(flat, WIDTH, HEIGHT, dc.input_size,
+                                   selection=True)
+        det = decode_topk(*forward_heads(pipe.params, imgs.to(pipe.dtype),
+                                         pipe.family),
+                          dc.conf_threshold, dc.max_candidates, dc.input_size)
+        nms_ms = cuda_ms(lambda: nms_keep_cuda(
+            det.poses, det.boxes, det.valid, dc.iou_threshold,
+            dc.oks_threshold), 50)
+        nbytes = ops = 0
+        for i in range(CHUNK):
+            b, o = nms_work(det.poses[i], det.boxes[i], det.valid[i],
+                            dc.iou_threshold)
+            nbytes, ops = nbytes + b, ops + o
+    nms_bound, nms_by = bound(nbytes, ops)
+    timed = ms[1:]
+    emit("chunk_path", t0, chunk=CHUNK, chunks=len(ms),
+         launches_per_chunk=per_chunk, launches=launches,
+         ms_first_chunk=ms[0], ms_per_chunk=timed,
+         frames_per_s=CHUNK * len(timed) / (sum(timed) / 1e3),
+         tracks_in_last_chunk=tracks[-1][-8:],
+         last_frame_kp_err_px=errs, peak_mem_mb=peak,
+         candidates_per_frame=float(det.valid.sum()) / CHUNK,
+         nms_b128_ms=nms_ms, nms_b128_bound_ms=nms_bound,
+         nms_b128_bound_by=nms_by)
+    for k, r in rows.items():
+        r["launches"] += launches[k]
+    r1 = rows["nms_keep"]
+    r1["ms_b128"], r1["bound_ms_b128"] = nms_ms, nms_bound
+    if any(c != {"nms_keep": 1, "auction": 0, "tracker_chunk": 1}
+           for c in per_chunk):
+        raise SystemExit(f"chunk path launch counts per chunk {per_chunk}, "
+                         "expected nms_keep 1, tracker_chunk 1, auction 0")
+    if max(errs) > 10.0:
+        raise SystemExit(f"chunk tracks miss the synthetic people: {errs}")
+
+
+def phase_chunk_cpu_vs_card(t0, params):
+    import numpy as np
+    from posebyte_tpu_torch.core import PipelineConfig
+    from posebyte_tpu_torch.pipeline import PosePipeline
+
+    frames, _ = next(make_chunks(1, CMP_CHUNK))
+    cfg = PipelineConfig(precision="fp32")
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        pipe = PosePipeline(cfg, params, device=dev)
+        runs[dev] = pipe.fetch_chunk_outputs(pipe.process_chunk(frames),
+                                             WIDTH, HEIGHT)
+    ids_equal, kp_err = True, 0.0
+    for a, b in zip(runs["cpu"], runs["cuda"]):
+        ids_equal &= [t.track_id for t in a] == [t.track_id for t in b]
+        if len(a) == len(b) and a:
+            kp_err = max(kp_err, float(np.abs(
+                np.stack([t.keypoints for t in a])
+                - np.stack([t.keypoints for t in b])).max()))
+    emit("chunk_cpu_vs_card", t0, frames=CMP_CHUNK, ids_equal=ids_equal,
+         tracks_per_frame=[len(r) for r in runs["cuda"]],
+         max_kp_diff_px=kp_err)
+    if not ids_equal or kp_err > 1e-2 or not any(runs["cuda"]):
+        raise SystemExit("the chunk path on the card and the CPU disagree")
 
 
 def main():
@@ -330,6 +583,8 @@ def main():
         "yolov8n-pose-synthetic640.safetensors"))
     phase_main_path(t0, params, rows)
     phase_cpu_vs_card(t0, params)
+    phase_chunk_path(t0, params, rows)
+    phase_chunk_cpu_vs_card(t0, params)
 
     print(json.dumps({"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces",

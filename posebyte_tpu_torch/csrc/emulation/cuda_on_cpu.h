@@ -35,6 +35,7 @@ inline int g_last_error = 0;
 
 #define __global__
 #define __device__
+#define __host__
 #define __launch_bounds__(x)
 #define __restrict__ __restrict
 typedef int cudaError_t;

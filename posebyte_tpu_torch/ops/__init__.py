@@ -1,6 +1,8 @@
-"""Compute primitives on torch tensors; Kernel 1 (pose-NMS keep mask) and
-Kernel 2 (auction) are hand-written CUDA behind ops.nms and
-ops.assignment."""
+"""Compute primitives on torch tensors; Kernel 1 (pose-NMS keep mask),
+Kernel 2 (auction) and Kernel 3 (the tracker over a chunk) are
+hand-written CUDA behind ops.nms, ops.assignment and ops.tracker_chunk
+(whose dispatcher shares the module's name, so it is not re-exported
+here)."""
 from .assignment import (auction_assign, auction_assign_cuda,
                          auction_iterations)
 from .decode import decode_topk
@@ -13,6 +15,7 @@ from .nms import (nms_keep, nms_keep_cuda, nms_keep_plain,
 from .oks import oks_matrix, torso_oks_matrix
 from .preprocess import (letterbox_flat_nhwc, letterbox_params,
                          unletterbox_coords)
+from .tracker_chunk import tracker_chunk_cuda, tracker_chunk_plain
 
 __all__ = [
     "auction_assign", "auction_assign_cuda", "auction_iterations",
@@ -20,5 +23,6 @@ __all__ = [
     "masked_pose_bbox", "pose_centers", "cv_predict", "cv_update",
     "nms_keep", "nms_keep_cuda", "nms_keep_plain", "nms_overlap_matrix",
     "pose_nms", "oks_matrix", "torso_oks_matrix", "letterbox_flat_nhwc",
-    "letterbox_params", "unletterbox_coords",
+    "letterbox_params", "unletterbox_coords", "tracker_chunk_cuda",
+    "tracker_chunk_plain",
 ]

@@ -23,7 +23,7 @@ import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
-SOURCES = ("nms_keep.cu", "auction.cu")
+SOURCES = ("nms_keep.cu", "auction.cu", "tracker_chunk.cu")
 HEADERS = ("auction.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
@@ -39,6 +39,9 @@ _SIGNATURES = {
                                   _c_void_p, _c_int, _c_int, _c_int, _c_int,
                                   _c_float, _c_void_p]),
     "posebyte_auction_smem_bytes": (ctypes.c_size_t, [_c_int, _c_int]),
+    "posebyte_tracker_chunk": (_c_int, [_c_void_p, _c_void_p, _c_void_p,
+                                        _c_void_p]),
+    "posebyte_tracker_chunk_smem_bytes": (ctypes.c_size_t, [_c_int, _c_int]),
     "posebyte_error_string": (ctypes.c_char_p, [_c_int]),
 }
 

@@ -5,7 +5,7 @@ from __future__ import annotations
 import torch
 
 from ..core import constants as C
-from .oks import torso_index
+from .oks import sum_in_order, torso_index
 
 
 def spatial_gate(track_centers: torch.Tensor, det_centers: torch.Tensor,
@@ -23,14 +23,16 @@ def spatial_gate(track_centers: torch.Tensor, det_centers: torch.Tensor,
     degenerate = ((t_c[..., 2] < 1.0) | (t_c[..., 3] < 1.0)
                   | (d_c[..., 2] < 1.0) | (d_c[..., 3] < 1.0))
     diff = t_c[..., :2] - d_c[..., :2]
-    dist = torch.sqrt((diff * diff).sum(dim=-1))                 # [T, D]
+    dist = torch.sqrt(diff[..., 0] * diff[..., 0]
+                      + diff[..., 1] * diff[..., 1])             # [T, D]
     avg_size = (t_c[..., 2] + t_c[..., 3]
                 + d_c[..., 2] + d_c[..., 3]) * 0.25
     ratio = dist / (avg_size + 1e-6)
 
-    torso = torso_index(track_velocities.device)
-    speed = torch.linalg.vector_norm(track_velocities[:, torso, :],
-                                     dim=-1).mean(dim=-1)        # [T]
+    # mean torso speed, summed in index order (as Kernel 3 sums it)
+    tv = track_velocities[:, torso_index(track_velocities.device), :]
+    speed = sum_in_order(torch.sqrt(tv[..., 0] * tv[..., 0]
+                                    + tv[..., 1] * tv[..., 1])) * 0.25
     threshold = gate_threshold * (
         1.0 + torch.clamp_max(speed[:, None] / (avg_size + 1e-6), 2.0))
     threshold = torch.where(

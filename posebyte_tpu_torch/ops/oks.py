@@ -26,6 +26,18 @@ def torso_index(device: torch.device):
     return torch.from_numpy(_TORSO).to(device)
 
 
+def sum_in_order(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis in index order, ((x0 + x1) + x2) + ..., one
+    elementwise add at a time. A reduction kernel sums in an order of its
+    own; this order is the one Kernel 3 (csrc/tracker_chunk.cu) uses, so
+    that the tracker's costs, and with them its assignments, agree on the
+    card bit for bit."""
+    total = x[..., 0]
+    for q in range(1, x.shape[-1]):
+        total = total + x[..., q]
+    return total
+
+
 def _masked_area(poses: torch.Tensor, conf_thresh: float = 0.1):
     """Visible-keypoint bbox area per pose [..., 17, 3] -> [...]."""
     xy = poses[..., :2]
@@ -45,7 +57,7 @@ def oks_matrix(track_poses: torch.Tensor, det_poses: torch.Tensor,
     scale^2 = max(mean of the two visible-keypoint box areas,
     min_scale_sq); per keypoint exp(-d^2 / (2 scale^2 (sigma_scale
     sigma)^2)), averaged over keypoints visible on both sides; fewer than
-    min_count of them gives 0."""
+    min_count of them gives 0. Keypoints are summed in index order."""
     scale_sq = ((_masked_area(track_poses)[:, None]
                  + _masked_area(det_poses)[None, :]) * 0.5
                 ).clamp_min(min_scale_sq)                      # [T, D]
@@ -56,7 +68,7 @@ def oks_matrix(track_poses: torch.Tensor, det_poses: torch.Tensor,
     vis = ((track_poses[:, None, :, 2] > visibility_threshold)
            & (det_poses[None, :, :, 2] > visibility_threshold))
     count = vis.sum(dim=-1)
-    total = torch.where(vis, oks_kp, 0.0).sum(dim=-1)
+    total = sum_in_order(torch.where(vis, oks_kp, 0.0))
     return torch.where(count >= min_count, total / count.clamp_min(1), 0.0)
 
 
@@ -75,5 +87,5 @@ def torso_oks_matrix(track_poses: torch.Tensor, det_poses: torch.Tensor,
     vis = ((tp[:, None, :, 2] > conf_thresh)
            & (dp[None, :, :, 2] > conf_thresh))
     count = vis.sum(dim=-1)
-    total = torch.where(vis, oks_kp, 0.0).sum(dim=-1)
+    total = sum_in_order(torch.where(vis, oks_kp, 0.0))
     return torch.where(count >= min_count, total / count.clamp_min(1), 0.0)

@@ -24,11 +24,11 @@ def total_order_key(r32: torch.Tensor) -> torch.Tensor:
 
 
 def topk_confidence(ranked: torch.Tensor, k: int, impl: str = "sort"):
-    """(values, indices) of the k largest entries of 1-D `ranked`,
-    descending, ties to the lower index: lax.top_k's result."""
+    """(values, indices) of the k largest entries along the last axis of
+    `ranked`, descending, ties to the lower index: lax.top_k's result."""
     if impl != "sort":
         raise NotImplementedError(f"topk_impl {impl!r} is not ported; "
                                   "use 'sort'")
     key = total_order_key(ranked)
-    idx = torch.sort(-key, stable=True).indices[:k]
-    return ranked[idx], idx
+    idx = torch.sort(-key, dim=-1, stable=True).indices[..., :k]
+    return ranked.gather(-1, idx), idx

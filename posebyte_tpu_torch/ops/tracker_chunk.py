@@ -1,0 +1,250 @@
+"""The tracker recurrence over a chunk of K frames, after
+posebyte_tpu/ops/pallas_tracker.py::tracker_chunk_pallas.
+
+    tracker_chunk(state, dets, config, advance=None) -> (state', outs)
+
+dets is a Detections with a leading K axis (poses [K, D, 17, 3], boxes
+[K, D, 4], scores [K, D], valid [K, D]); outs holds per frame ids [K, D]
+int32, scores [K, D], poses [K, D, 17, 3], boxes [K, D, 4], emit [K, D]
+bool and num_active [K] int32. advance is an optional [K] bool mask: a
+frame with advance False leaves the state untouched and reports ids -1,
+scores 0, emit False and num_active 0 (its poses and boxes are those of
+the would-be state, as the TPU kernel gives them). A leading stream axis S
+on the state's fields, the detections and advance runs S independent
+streams (the JAX package vmaps the kernel over streams).
+
+tracker_chunk_cuda is Kernel 3 (csrc/tracker_chunk.cu), one launch per
+chunk with one block per stream, for the cv motion model without Re-ID;
+tracker_chunk_plain is its plain version, a loop of tracker_step and
+extract_outputs_device with the advance blend of the serving scan. The
+dispatcher tracker_chunk takes the kernel for CUDA tensors and the plain
+version for CPU tensors only.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..core import constants as C
+from ..core.config import TrackerConfig
+from ..core.structs import Detections, TrackerState
+from ..tracker.output import extract_outputs_device
+from ..tracker.step import tracker_step
+from . import cuda_lib
+from .assignment import _MAX_SMEM, auction_iterations
+from .kalman import CV_LOST_DECAY, CV_MEASUREMENT_NOISE, CV_PROCESS_NOISE, \
+    CV_VELOCITY_ALPHA
+from .oks import _sig_sq
+
+OUT_KEYS = ("ids", "scores", "poses", "boxes", "emit", "num_active")
+# State fields the kernel carries, with their dtypes; kf_mean, kf_cov and
+# embeddings pass through unchanged (cv motion, no Re-ID).
+_CARRIED = (("poses", torch.float32), ("velocities", torch.float32),
+            ("scores", torch.float32), ("ids", torch.int32),
+            ("states", torch.int32), ("hits", torch.int32),
+            ("ages", torch.int32), ("last_frame", torch.int32),
+            ("active", torch.bool))
+
+
+def _check_options(config: TrackerConfig, what: str) -> None:
+    if config.motion_model != "cv" or config.reid_weight > 0.0:
+        raise NotImplementedError(f"{what}: only the cv motion model "
+                                  "without Re-ID is ported")
+    if not config.torso_tier:
+        raise NotImplementedError(f"{what}: the chunk tracker always runs "
+                                  "the torso tier (torso_tier=True)")
+
+
+def _pick(obj, i):
+    """Field-wise obj[i] of a Detections or TrackerState."""
+    return dataclasses.replace(obj, **{
+        f.name: getattr(obj, f.name)[i] for f in dataclasses.fields(obj)})
+
+
+def _stack(objs):
+    return dataclasses.replace(objs[0], **{
+        f.name: torch.stack([getattr(o, f.name) for o in objs])
+        for f in dataclasses.fields(objs[0])})
+
+
+def _plain_one_stream(state: TrackerState, dets: Detections,
+                      config: TrackerConfig, advance):
+    outs = {k: [] for k in OUT_KEYS}
+    for k in range(dets.scores.shape[0]):
+        det = _pick(dets, k)
+        new, aux = tracker_step(state, det, config)
+        ids, scores, poses, boxes, emit = extract_outputs_device(
+            new, det.scores, config)
+        num_active = aux["num_active"].to(torch.int32)
+        if advance is not None:
+            adv = advance[k]
+            state = dataclasses.replace(state, **{
+                f.name: torch.where(adv, getattr(new, f.name),
+                                    getattr(state, f.name))
+                for f in dataclasses.fields(state)})
+            ids = torch.where(adv, ids, -1)
+            scores = torch.where(adv, scores, 0.0)
+            emit = emit & adv
+            num_active = torch.where(adv, num_active, 0)
+        else:
+            state = new
+        for key, v in zip(OUT_KEYS, (ids, scores, poses, boxes, emit,
+                                     num_active)):
+            outs[key].append(v)
+    return state, {k: torch.stack(v) for k, v in outs.items()}
+
+
+def tracker_chunk_plain(state: TrackerState, dets: Detections,
+                        config: TrackerConfig = TrackerConfig(),
+                        advance: torch.Tensor | None = None):
+    """Plain version of Kernel 3: tracker_step and extract_outputs_device
+    frame by frame (on a CUDA tensor its auctions run through Kernel 2)."""
+    _check_options(config, "tracker_chunk_plain")
+    if dets.poses.dim() == 4:
+        return _plain_one_stream(state, dets, config, advance)
+    results = [_plain_one_stream(_pick(state, s), _pick(dets, s), config,
+                                 None if advance is None else advance[s])
+               for s in range(dets.poses.shape[0])]
+    return (_stack([r[0] for r in results]),
+            {k: torch.stack([r[1][k] for r in results]) for k in OUT_KEYS})
+
+
+def _float_args(config: TrackerConfig, T: int) -> np.ndarray:
+    """The kernel's float constants, rounded to float32 as the plain
+    version's PyTorch operations round their Python scalars."""
+    gain = CV_MEASUREMENT_NOISE / (CV_MEASUREMENT_NOISE + CV_PROCESS_NOISE)
+    cpu = torch.device("cpu")
+    return np.concatenate([
+        np.asarray([config.gate_threshold,
+                    config.gate_threshold * C.LOST_GATE_SCALE,
+                    config.visibility_threshold, config.dedup_iou_threshold,
+                    config.new_track_thresh, gain, CV_VELOCITY_ALPHA,
+                    1.0 - CV_VELOCITY_ALPHA, CV_LOST_DECAY,
+                    1.0 / (T + 1)], np.float64)
+        .astype(np.float32),
+        _sig_sq(2.0, False, cpu).numpy(), _sig_sq(3.0, True, cpu).numpy(),
+    ]).astype(np.float32)
+
+
+def tracker_chunk_cuda(state: TrackerState, dets: Detections,
+                       config: TrackerConfig = TrackerConfig(),
+                       advance: torch.Tensor | None = None):
+    """Kernel 3 on CUDA tensors: one launch for the whole chunk, one block
+    per stream. Raises on a CPU tensor, a bad shape or dtype, an option
+    that is not ported, or a launch error."""
+    _check_options(config, "tracker_chunk_cuda")
+    single = dets.poses.dim() == 4
+    if single:
+        state, dets = _stack([state]), _stack([dets])
+        advance = None if advance is None else advance[None]
+    dev = dets.poses.device
+    tensors = [getattr(dets, f.name) for f in dataclasses.fields(dets)] + \
+        [getattr(state, f.name) for f in dataclasses.fields(state)]
+    if advance is not None:
+        tensors.append(advance)
+    if not all(t.is_cuda and t.device == dev for t in tensors):
+        raise ValueError("tracker_chunk_cuda: all inputs must be on one "
+                         "CUDA device")
+    if dets.poses.dim() != 5:
+        raise ValueError("tracker_chunk_cuda: dets.poses must be [K, D, 17, "
+                         "3] or [S, K, D, 17, 3]")
+    S, K, D = dets.poses.shape[:3]
+    T = state.poses.shape[1]
+    shapes = {
+        "dets.poses": (dets.poses, (S, K, D, C.NUM_KEYPOINTS, 3)),
+        "dets.scores": (dets.scores, (S, K, D)),
+        "dets.valid": (dets.valid, (S, K, D)),
+        "state.poses": (state.poses, (S, T, C.NUM_KEYPOINTS, 3)),
+        "state.velocities": (state.velocities, (S, T, C.NUM_KEYPOINTS, 2)),
+        "state.next_id": (state.next_id, (S,)),
+        "state.frame": (state.frame, (S,)),
+        "state.det_track_slot": (state.det_track_slot, (S, D)),
+    }
+    shapes.update({f"state.{n}": (getattr(state, n), (S, T))
+                   for n, _ in _CARRIED[2:]})
+    if (T, D) != (config.max_tracks, config.max_detections):
+        raise ValueError(f"tracker_chunk_cuda: T={T}, D={D}, but the config "
+                         f"says {config.max_tracks}, {config.max_detections}")
+    if advance is not None:
+        shapes["advance"] = (advance, (S, K))
+    for name, (t, shape) in shapes.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"tracker_chunk_cuda: {name} has shape "
+                             f"{tuple(t.shape)}, expected {shape}")
+    dtypes = [(dets.poses, torch.float32), (dets.scores, torch.float32),
+              (dets.valid, torch.bool), (state.next_id, torch.int32),
+              (state.frame, torch.int32),
+              (state.det_track_slot, torch.int32)] + \
+        [(getattr(state, n), dt) for n, dt in _CARRIED]
+    if advance is not None:
+        dtypes.append((advance, torch.bool))
+    if any(t.dtype != dt for t, dt in dtypes):
+        raise TypeError("tracker_chunk_cuda: float32 poses, velocities and "
+                        "scores, int32 counters and ids, bool valid, active "
+                        "and advance")
+    lib = cuda_lib.load()
+    if min(S, K, T, D) <= 0 or \
+            lib.posebyte_tracker_chunk_smem_bytes(T, D) > _MAX_SMEM:
+        raise ValueError(f"tracker_chunk_cuda: T={T}, D={D} does not fit "
+                         "one block's shared memory")
+
+    if advance is None:
+        advance = torch.ones((S, K), dtype=torch.bool, device=dev)
+    counters = torch.stack([state.next_id, state.frame], dim=-1)
+    ins = [dets.poses, dets.scores, dets.valid, advance] + \
+        [getattr(state, n) for n, _ in _CARRIED] + \
+        [counters, state.det_track_slot]
+    ins = [t.contiguous() for t in ins]
+    outs_state = [torch.empty_like(t) for t in ins[4:]]
+    outs = {"ids": torch.empty((S, K, D), dtype=torch.int32, device=dev),
+            "scores": torch.empty((S, K, D), dtype=torch.float32,
+                                  device=dev),
+            "poses": torch.empty((S, K, D, C.NUM_KEYPOINTS, 3),
+                                 dtype=torch.float32, device=dev),
+            "boxes": torch.empty((S, K, D, 4), dtype=torch.float32,
+                                 device=dev),
+            "emit": torch.empty((S, K, D), dtype=torch.bool, device=dev),
+            "num_active": torch.empty((S, K), dtype=torch.int32,
+                                      device=dev)}
+    ptrs = (ctypes.c_void_p * 32)(*(t.data_ptr() for t in
+                                    ins + outs_state + list(outs.values())))
+    iargs = np.asarray([S, K, T, D, config.min_hits, config.max_age,
+                        config.max_age + config.lost_window,
+                        auction_iterations(T), C.TENTATIVE_MAX_AGE],
+                       np.int32)
+    fargs = _float_args(config, T)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = lib.posebyte_tracker_chunk(ptrs, iargs.ctypes.data,
+                                            fargs.ctypes.data, stream)
+    cuda_lib.check(status, "tracker_chunk")
+    tracker_chunk_cuda.launches += 1
+
+    new = dict(zip((n for n, _ in _CARRIED), outs_state[:len(_CARRIED)]))
+    counters, slot = outs_state[len(_CARRIED):]
+    new_state = TrackerState(
+        **new, next_id=counters[:, 0], frame=counters[:, 1],
+        det_track_slot=slot, kf_mean=state.kf_mean, kf_cov=state.kf_cov,
+        embeddings=state.embeddings)
+    if single:
+        return _pick(new_state, 0), {k: v[0] for k, v in outs.items()}
+    return new_state, outs
+
+
+tracker_chunk_cuda.launches = 0
+
+
+def tracker_chunk(state: TrackerState, dets: Detections,
+                  config: TrackerConfig = TrackerConfig(),
+                  advance: torch.Tensor | None = None):
+    """K tracker frames: Kernel 3 for CUDA tensors, the plain version for
+    CPU tensors."""
+    if dets.poses.is_cuda:
+        return tracker_chunk_cuda(state, dets, config, advance)
+    if dets.poses.device.type != "cpu":
+        raise ValueError(f"tracker_chunk: unsupported device "
+                         f"{dets.poses.device}")
+    return tracker_chunk_plain(state, dets, config, advance)

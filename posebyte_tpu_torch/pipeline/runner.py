@@ -1,11 +1,19 @@
-"""The per-frame pipeline: letterbox -> YOLO-pose -> decode -> pose-NMS ->
-tracker step -> outputs, after posebyte_tpu/pipeline/runner.py:149-194
-(the step), :340 (process_frame) and :417 (fetch_outputs).
+"""The pose pipeline: letterbox -> YOLO-pose -> decode -> pose-NMS ->
+tracker -> outputs, after posebyte_tpu/pipeline/runner.py.
 
-Everything from the frame's bytes to the per-detection track outputs runs
-on the pipeline's device; the host copies one frame in and, in
-fetch_outputs, the small output tensors out. PyTorch runs eagerly, so the
-step is a plain method.
+Two paths, as in the JAX package:
+- per frame (runner.py:149-194, :340-415): process_frame, or
+  prestage_frame + process_frame_device, or the depth-pipelined
+  process_stream; the tracker is tracker_step, whose three auctions are
+  Kernel 2 on the card.
+- per chunk of K frames (runner.py:197-338): chunk_body, process_chunk,
+  stage_chunk + process_chunk_device. Letterbox (strided selection),
+  model, decode and NMS run batched over the K frames (Kernel 1 once, grid
+  = K), and the tracker recurrence runs as one Kernel 3 launch.
+Everything from the frames' bytes to the per-detection track outputs runs
+on the pipeline's device; the host copies frames in and, in fetch_outputs
+or fetch_chunk_outputs, the small output tensors out. PyTorch runs
+eagerly, so a step is a plain method.
 """
 from __future__ import annotations
 
@@ -17,12 +25,13 @@ from torch.profiler import record_function
 
 from ..core.config import PipelineConfig
 from ..core.device import resolve_device, set_numeric_settings
-from ..core.structs import TrackerState
+from ..core.structs import Detections, TrackerState
 from ..models.weights import fold_stem_preprocess
 from ..models.yolo_pose import MODEL_CONFIGS, forward_heads
 from ..ops.decode import decode_topk
 from ..ops.nms import pose_nms
 from ..ops.preprocess import letterbox_flat_nhwc, letterbox_params
+from ..ops.tracker_chunk import tracker_chunk
 from ..tracker.output import TrackOutput, extract_outputs_device
 from ..tracker.step import tracker_step
 
@@ -69,25 +78,40 @@ class PosePipeline:
             out[k] = t
         return out
 
-    def _step(self, frame_flat: torch.Tensor, h: int, w: int):
-        """One frame on the device. The stages carry profiler labels
+    def _detect(self, params, frames_flat: torch.Tensor, h: int, w: int,
+                selection: bool) -> Detections:
+        """The detector front end over a leading batch axis (the
+        counterpart of detect_fn): flat u8 frames [B, H*W*3] -> compacted,
+        score-descending Detections [B, max_detections]. selection takes
+        the strided-selection letterbox (the chunk path), else the matmul
+        lowering (the per-frame path). The stages carry profiler labels
         (utils/profiling.py reads them); a label costs a few microseconds
         of host time when no profiler is active."""
-        det_cfg, trk_cfg = self.config.detector, self.config.tracker
+        det_cfg = self.config.detector
         with record_function("letterbox"):
-            img = letterbox_flat_nhwc(frame_flat, w, h, det_cfg.input_size,
-                                      out_dtype=self.dtype)
+            imgs = letterbox_flat_nhwc(frames_flat, w, h,
+                                       det_cfg.input_size,
+                                       out_dtype=self.dtype,
+                                       selection=selection)
         with record_function("model"):
-            box, cls, kpt = forward_heads(self.params, img[None],
+            box, cls, kpt = forward_heads(params, imgs.to(self.dtype),
                                           self.family)
         with record_function("decode"):
-            det = decode_topk(box[0], cls[0], kpt[0],
-                              det_cfg.conf_threshold,
+            det = decode_topk(box, cls, kpt, det_cfg.conf_threshold,
                               det_cfg.max_candidates, det_cfg.input_size,
                               topk_impl=det_cfg.topk_impl)
         with record_function("nms"):
-            det = pose_nms(det, det_cfg.iou_threshold,
-                           det_cfg.oks_threshold, det_cfg.max_detections)
+            return pose_nms(det, det_cfg.iou_threshold,
+                            det_cfg.oks_threshold, det_cfg.max_detections)
+
+    def _step(self, frame_flat: torch.Tensor, h: int, w: int):
+        """One frame on the device: _detect on a batch of one, then
+        tracker_step and the outputs."""
+        trk_cfg = self.config.tracker
+        det = self._detect(self.params, frame_flat[None], h, w,
+                           selection=False)
+        det = Detections(det.poses[0], det.boxes[0], det.scores[0],
+                         det.valid[0])
         with record_function("tracker"):
             state, aux = tracker_step(self.state, det, trk_cfg)
         with record_function("outputs"):
@@ -98,28 +122,161 @@ class PosePipeline:
                "det_scores": det.scores, "det_valid": det.valid}
         return state, out
 
+    def chunk_body(self, k: int, h: int, w: int):
+        """The chunk step as a function (params, state, frames_flat [k,
+        H*W*3] u8 on the device) -> (state, outs), outs with a leading k
+        axis: ids, scores, poses, boxes, emit, num_active."""
+        trk_cfg = self.config.tracker
+
+        def body(params, state, frames_flat):
+            if tuple(frames_flat.shape) != (k, h * w * 3):
+                raise ValueError(f"chunk_body({k}, {h}, {w}) got frames "
+                                 f"{tuple(frames_flat.shape)}")
+            det = self._detect(params, frames_flat, h, w, selection=True)
+            with record_function("tracker"):
+                return tracker_chunk(state, det, trk_cfg)
+
+        return body
+
+    def _stage(self, frames_bgr: np.ndarray, shape) -> torch.Tensor:
+        """Start the copy of u8 frames to the device, reshaped to `shape`:
+        through a pinned host buffer (PyTorch's caching host allocator)
+        with a non-blocking copy, so it overlaps work already queued (the
+        counterpart of the JAX package's staged device buffers)."""
+        flat = torch.from_numpy(np.ascontiguousarray(
+            frames_bgr, dtype=np.uint8).reshape(shape))
+        with record_function("ingest"):
+            if self.device.type != "cuda":
+                return flat.to(self.device)
+            return flat.pin_memory().to(self.device, non_blocking=True)
+
+    def stage_chunk(self, frames_bgr: np.ndarray) -> torch.Tensor:
+        """Start the copy of a chunk [K, H, W, 3] u8 to the device; returns
+        the device tensor [K, H*W*3] for process_chunk_device."""
+        return self._stage(frames_bgr, (frames_bgr.shape[0], -1))
+
+    def process_chunk_device(self, frames_flat: torch.Tensor, h: int,
+                             w: int):
+        """Run a staged chunk [K, H*W*3]; returns the stacked output
+        tensors on the device (asynchronous on the card)."""
+        k = frames_flat.shape[0]
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            self.state, outs = self.chunk_body(k, h, w)(
+                self.params, self.state, frames_flat)
+        self.timing["dispatch_ms"] += (time.perf_counter() - t0) * 1e3
+        self.timing["frames"] += k
+        return outs
+
+    def process_chunk(self, frames_bgr: np.ndarray):
+        """Run a chunk of frames [K, H, W, 3] uint8 BGR; returns the
+        stacked output tensors on the device, with a leading K axis."""
+        k, h, w = frames_bgr.shape[:3]
+        return self.process_chunk_device(self.stage_chunk(frames_bgr), h, w)
+
+    def fetch_chunk_outputs(self, outs, frame_w: int, frame_h: int):
+        """A chunk's outputs -> a list per frame of fetch_outputs' lists.
+        The five output tensors are packed on the device into one int32
+        tensor [K, D, 58] (floats by their bits), so that the chunk makes
+        one device-to-host copy; the host unpacks it by views."""
+        with record_function("fetch"):
+            i32 = torch.int32
+            packed = torch.cat([
+                outs["ids"].to(i32)[..., None],
+                outs["scores"].float().view(i32)[..., None],
+                outs["poses"].float().flatten(-2).view(i32),
+                outs["boxes"].float().view(i32),
+                outs["emit"].to(i32)[..., None]], dim=-1).cpu().numpy()
+        k, d = packed.shape[:2]
+        f32 = packed.view(np.float32)
+        return [self._tracks(packed[i, :, 0], f32[i, :, 1],
+                             f32[i, :, 2:53].reshape(d, 17, 3),
+                             f32[i, :, 53:57], packed[i, :, 57] != 0,
+                             frame_w, frame_h)
+                for i in range(k)]
+
+    def prestage_frame(self, frame_bgr: np.ndarray) -> torch.Tensor:
+        """Start the copy of one frame to the device, so that it overlaps
+        the frame being computed; returns the flat device tensor for
+        process_frame_device."""
+        return self._stage(frame_bgr, (-1,))
+
+    def process_frame_device(self, frame_flat: torch.Tensor, h: int, w: int,
+                             block: bool = False):
+        """Run the per-frame step on a staged frame [H*W*3]."""
+        with torch.inference_mode():
+            self.state, out = self._step(frame_flat, h, w)
+        if block and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.timing["frames"] += 1
+        return out
+
+    def process_stream(self, frames, sync_depth: int = 2):
+        """Depth-pipelined streaming: yields the device outputs of each
+        frame of an iterable, keeping up to `sync_depth` frames in flight.
+        Frame N+1's copy is issued before frame N's outputs are awaited;
+        waiting on the oldest frame in flight bounds the queue, and every
+        yielded output is complete."""
+        from collections import deque
+
+        def ready(out):
+            if out["done"] is not None:
+                out["done"].synchronize()
+            return {k: v for k, v in out.items() if k != "done"}
+
+        def run(staged):
+            out = self.process_frame_device(*staged)
+            out["done"] = None
+            if self.device.type == "cuda":
+                out["done"] = torch.cuda.Event()
+                out["done"].record()
+            return out
+
+        inflight: deque = deque()
+        staged = None
+        for frame in frames:
+            h, w = frame.shape[:2]
+            nxt = self.prestage_frame(frame)
+            if staged is not None:
+                inflight.append(run(staged))
+                if len(inflight) > sync_depth:
+                    yield ready(inflight.popleft())
+            staged = (nxt, h, w)
+        if staged is not None:
+            inflight.append(run(staged))
+        while inflight:
+            yield ready(inflight.popleft())
+
     def process_frame(self, frame_bgr: np.ndarray, block: bool = False):
         """Run one frame (uint8 HWC BGR); returns the output tensors on the
-        device. Asynchronous on the card unless block=True."""
+        device. Asynchronous on the card unless block=True. The frame goes
+        to the device by a plain (pageable) copy; process_stream's
+        prestage_frame pins it so that the copy overlaps compute."""
         h, w = frame_bgr.shape[:2]
         t0 = time.perf_counter()
         flat = torch.from_numpy(
             np.ascontiguousarray(frame_bgr, dtype=np.uint8).reshape(-1))
-        with torch.inference_mode():
-            self.state, out = self._step(flat.to(self.device), h, w)
-        if block and self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        with record_function("ingest"):
+            flat = flat.to(self.device)
+        out = self.process_frame_device(flat, h, w, block)
         self.timing["dispatch_ms"] += (time.perf_counter() - t0) * 1e3
-        self.timing["frames"] += 1
         return out
 
     def fetch_outputs(self, out, frame_w: int, frame_h: int):
         """The one device-to-host copy: outputs -> list of TrackOutput in
-        frame coordinates (reference: getActiveTracks + scaleTrackOutputs,
+        frame coordinates."""
+        with record_function("fetch"):
+            ids, scores, poses, boxes, emit = (
+                out[k].cpu().numpy()
+                for k in ("ids", "scores", "poses", "boxes", "emit"))
+        return self._tracks(ids, scores, poses, boxes, emit, frame_w,
+                            frame_h)
+
+    def _tracks(self, ids, scores, poses, boxes, emit, frame_w: int,
+                frame_h: int):
+        """One frame's host outputs -> list of TrackOutput in frame
+        coordinates (reference: getActiveTracks + scaleTrackOutputs,
         main.cpp:48-68, 224)."""
-        ids, scores, poses, boxes, emit = (
-            out[k].cpu().numpy()
-            for k in ("ids", "scores", "poses", "boxes", "emit"))
         scale, _, _, pad_x, pad_y = letterbox_params(
             frame_w, frame_h, self.config.detector.input_size)
         pad = np.asarray([pad_x, pad_y], np.float32)

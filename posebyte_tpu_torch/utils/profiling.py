@@ -1,12 +1,18 @@
-"""Where the time of the per-frame path goes, on the card.
+"""Where the time of the per-frame or the chunked path goes, on the card.
 
     python -m posebyte_tpu_torch.utils.profiling [--frames 32]
+    python -m posebyte_tpu_torch.utils.profiling --chunk 128 [--frames 256]
 
 Runs PosePipeline (yolov8n-pose, 640 input, bf16, raw u8 ingest; the
-trained 640 checkpoint) on synthetic 1280x720 frames, each frame through
-process_frame and fetch_outputs, and prints JSON lines:
+trained 640 checkpoint) on synthetic 1280x720 frames: each frame through
+process_frame and fetch_outputs, or with --chunk K each chunk of K frames
+through process_chunk and fetch_chunk_outputs. --warmup frames run first,
+then --frames timed frames with the profiler off, and again with it on;
+with --chunk both count whole chunks (by default one warm-up chunk and two
+timed ones). Prints JSON lines, every number per frame:
   steady      host wall ms per frame with the profiler off
-  stages      per pipeline stage (the labels of PosePipeline._step): host
+  stages      per pipeline stage (the profiler labels of runner.py: ingest,
+              letterbox, model, decode, nms, tracker, outputs, fetch): host
               ms, and device ms of the kernels launched inside it, per
               frame, from torch.profiler
   device      device busy ms per frame (sum of kernel and copy times), device
@@ -24,7 +30,10 @@ import os
 import time
 from collections import defaultdict
 
-STAGES = ("letterbox", "model", "decode", "nms", "tracker", "outputs")
+import numpy as np
+
+STAGES = ("ingest", "letterbox", "model", "decode", "nms", "tracker",
+          "outputs", "fetch")
 
 
 def _frames(n: int, width: int = 1280, height: int = 720, persons: int = 6,
@@ -34,7 +43,13 @@ def _frames(n: int, width: int = 1280, height: int = 720, persons: int = 6,
     return [render_frame(scene.step(), width, height) for _ in range(n)]
 
 
-def _run(pipe, frames, w, h):
+def _run(pipe, frames, w, h, chunk=0):
+    """Frames through the pipeline; with `chunk`, `frames` is a list of
+    stacked chunks [chunk, H, W, 3], stacked before the clock starts."""
+    if chunk:
+        for c in frames:
+            pipe.fetch_chunk_outputs(pipe.process_chunk(c), w, h)
+        return
     for fr in frames:
         pipe.fetch_outputs(pipe.process_frame(fr), w, h)
 
@@ -48,9 +63,20 @@ def main(argv=None) -> int:
     from ..pipeline import PosePipeline
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--frames", type=int, default=32)
-    ap.add_argument("--warmup", type=int, default=8)
+    ap.add_argument("--frames", type=int, default=None,
+                    help="timed frames (default 32, or 2 chunks)")
+    ap.add_argument("--warmup", type=int, default=None,
+                    help="warm-up frames (default 8, or 1 chunk)")
+    ap.add_argument("--chunk", type=int, default=0,
+                    help="frames per chunk (0: the per-frame path)")
     args = ap.parse_args(argv)
+    unit = args.chunk or 1
+    if args.frames is None:
+        args.frames = 2 * args.chunk if args.chunk else 32
+    if args.warmup is None:
+        args.warmup = args.chunk if args.chunk else 8
+    if args.frames <= 0 or args.frames % unit or args.warmup % unit:
+        ap.error(f"--frames and --warmup must be whole chunks of {unit}")
     if not torch.cuda.is_available():
         raise SystemExit("profiling needs a CUDA card")
 
@@ -61,23 +87,27 @@ def main(argv=None) -> int:
     pipe = PosePipeline(PipelineConfig(), params)
     W, H = 1280, 720
     frames = _frames(args.warmup + args.frames)
-    _run(pipe, frames[:args.warmup], W, H)
+    if args.chunk:                     # stacked before the clock starts
+        frames = [np.stack(frames[i:i + args.chunk])
+                  for i in range(0, len(frames), args.chunk)]
+    warm = args.warmup // unit         # items of `frames` to warm up on
+    _run(pipe, frames[:warm], W, H, args.chunk)
     torch.cuda.synchronize()
 
     t0 = time.perf_counter()
-    _run(pipe, frames[args.warmup:], W, H)
+    _run(pipe, frames[warm:], W, H, args.chunk)
     wall = (time.perf_counter() - t0) * 1e3 / args.frames
     print(json.dumps({"phase": "steady", "frames": args.frames,
-                      "wall_ms_per_frame": wall,
+                      "chunk": args.chunk, "wall_ms_per_frame": wall,
                       "card": torch.cuda.get_device_name(0)}), flush=True)
 
     pipe.reset()
-    _run(pipe, frames[:args.warmup], W, H)
+    _run(pipe, frames[:warm], W, H, args.chunk)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _run(pipe, frames[args.warmup:], W, H)
+        _run(pipe, frames[warm:], W, H, args.chunk)
         torch.cuda.synchronize()
         prof_wall = (time.perf_counter() - t0) * 1e3 / args.frames
 
@@ -107,6 +137,8 @@ def main(argv=None) -> int:
         "phase": "device",
         "busy_ms_per_frame": busy if measured else None,
         "device_ops_per_frame": count / n if measured else None,
+        "device_ops_per_chunk":
+            count / n * args.chunk if measured and args.chunk else None,
         "idle_share_profiled": 1.0 - busy / prof_wall if measured else None,
         "idle_share_steady": 1.0 - busy / wall if measured else None}),
         flush=True)

@@ -77,6 +77,75 @@ class SyntheticScene:
             yield self.step()
 
 
+def pose_bbox(pose: np.ndarray, pad: float = 0.12) -> np.ndarray:
+    """Tight xyxy box around a [17, 3] pose, padded by `pad` x extent
+    (posebyte_tpu/utils/synthetic.py::pose_bbox)."""
+    x1, y1 = pose[:, 0].min(), pose[:, 1].min()
+    x2, y2 = pose[:, 0].max(), pose[:, 1].max()
+    dx, dy = (x2 - x1) * pad, (y2 - y1) * pad
+    return np.asarray([x1 - dx, y1 - dy, x2 + dx, y2 + dy], np.float32)
+
+
+def poses_to_arrays(poses: np.ndarray, capacity: int, score=0.9):
+    """Poses [P, 17, 3] -> padded detection arrays (poses [capacity, 17,
+    3], boxes [capacity, 4], scores [capacity], valid [capacity]), the
+    layout of posebyte_tpu/utils/synthetic.py::poses_to_detections.
+    `score` is one value or one per pose."""
+    P = len(poses)
+    assert P <= capacity
+    dp = np.zeros((capacity, 17, 3), np.float32)
+    db = np.zeros((capacity, 4), np.float32)
+    ds = np.zeros((capacity,), np.float32)
+    dv = np.zeros((capacity,), bool)
+    dp[:P] = poses
+    for i, pose in enumerate(poses):
+        db[i] = pose_bbox(pose)
+    ds[:P] = score
+    dv[:P] = True
+    return dp, db, ds, dv
+
+
+def tracker_chunk_case(seed: int, frames: int, capacity: int,
+                       n_persons: int = 6, width: int = 1280,
+                       height: int = 720, crowd: int = 0):
+    """Stacked detection arrays [K, capacity, ...] and an advance mask [K]
+    that put the tracker through its stages: a moving scene with keypoint
+    jitter, random dropouts and low-confidence keypoints, a person gone
+    long enough to be lost and found again, a near-duplicate detection
+    (dedup), empty frames, frames crowded with up to `crowd` unrelated
+    poses (new tracks, slot exhaustion), scores above and below the
+    new-track threshold, and holes in the advance mask."""
+    rng = np.random.default_rng(seed)
+    scene = SyntheticScene(n_persons, width, height, seed=seed)
+    out = [[], [], [], []]
+    for k in range(frames):
+        gt = scene.step()
+        keep = rng.uniform(size=n_persons) > 0.15
+        if frames // 4 <= k < frames // 4 + 14:
+            keep[0] = False                        # lost, then found
+        poses = gt[keep].copy()
+        poses[..., :2] += rng.normal(0, 1.5, poses[..., :2].shape)
+        poses[..., 2] = rng.uniform(0.05, 1.0, poses[..., 2].shape)
+        if k % 4 == 1 and len(poses):              # near-duplicate
+            poses = np.concatenate([poses, poses[:1] + 2.0])
+        if crowd and k % 5 in (3, 4):              # crowded frames
+            extra = rng.uniform(60, min(width, height) - 60, (crowd, 1, 2)) \
+                + POSE_OFFSETS[None] * rng.uniform(40, 90, (crowd, 1, 1))
+            extra = np.concatenate(
+                [extra, rng.uniform(0.3, 1.0, (crowd, 17, 1))], -1)
+            poses = np.concatenate([poses, extra.astype(np.float32)])
+        if k % 11 == 7:                            # empty frame
+            poses = poses[:0]
+        poses = poses[:capacity].astype(np.float32)
+        scores = rng.uniform(0.1, 1.0, len(poses)).astype(np.float32)
+        order = np.argsort(-scores, kind="stable")
+        for lst, a in zip(out, poses_to_arrays(poses[order], capacity,
+                                               scores[order])):
+            lst.append(a)
+    advance = rng.uniform(size=frames) > 0.2
+    return tuple(np.stack(a) for a in out), advance
+
+
 def _paint(frame, ys, xs, mask, color):
     frame[ys[mask], xs[mask]] = color
 

@@ -7,9 +7,12 @@ conftest:
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 
-Tolerances: none for the kernels (keep masks and assignments equal); the
-pipeline on the card against the CPU in fp32 within 1e-2 px with equal
-track ids (cuDNN and oneDNN sum the convolutions in different orders).
+Tolerances: none for Kernels 1 and 2 (keep masks and assignments equal);
+Kernel 3 against its plain version on the card: integer outputs and state
+equal, floats within 1e-5 px + 1e-6 relative (the same float32 operations
+in the same order); the per-frame and the chunk pipeline on the card
+against the CPU in fp32 within 1e-2 px with equal track ids (cuDNN and
+oneDNN sum the convolutions in different orders).
 """
 import os
 
@@ -163,3 +166,144 @@ def test_pipeline_card_matches_cpu(card):
     assert len(gpu) >= 3
     assert (N.nms_keep_cuda.launches - before[0],
             A.auction_assign_cuda.launches - before[1]) == (6, 18)
+
+
+def tracker_chunk_inputs(card, seed, K, T, D, crowd, streams=None):
+    """Detections, advance mask and a fresh state on the card, from the
+    synthetic tracker case; with `streams`, a leading stream axis."""
+    from posebyte_tpu_torch.core.structs import Detections, TrackerState
+    from posebyte_tpu_torch.ops.tracker_chunk import _stack
+    from posebyte_tpu_torch.utils.synthetic import tracker_chunk_case
+
+    def one(s):
+        arrays, adv = tracker_chunk_case(seed + s, K, D, crowd=crowd)
+        return (Detections(*(torch.from_numpy(a).to(card) for a in arrays)),
+                torch.from_numpy(adv).to(card),
+                TrackerState.init(T, D, card))
+
+    if streams is None:
+        return one(0)
+    cases = [one(s) for s in range(streams)]
+    return (_stack([c[0] for c in cases]),
+            torch.stack([c[1] for c in cases]), _stack([c[2] for c in cases]))
+
+
+def assert_chunk_equal(got, want):
+    """Integers equal; floats within 1e-5 px + 1e-6 relative (both sides
+    run the same float32 operations in the same order on the card)."""
+    import dataclasses
+    (gs, go), (ws, wo) = got, want
+    pairs = [(f.name, getattr(gs, f.name), getattr(ws, f.name))
+             for f in dataclasses.fields(gs)] + \
+        [(k, go[k], wo[k]) for k in wo]
+    for name, g, w in pairs:
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        if g.dtype.is_floating_point:
+            torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-5,
+                                       msg=name)
+        else:
+            assert torch.equal(g, w), name
+
+
+@pytest.mark.parametrize("streams,K,T,D,crowd", [
+    (None, 128, 128, 64, 40), (3, 128, 128, 64, 40), (None, 24, 16, 16, 12),
+    (2, 12, 128, 128, 100)])
+def test_tracker_chunk_kernel_matches_plain(card, streams, K, T, D, crowd):
+    from posebyte_tpu_torch.core.config import TrackerConfig
+    from posebyte_tpu_torch.ops import tracker_chunk as TC
+    dets, adv, state = tracker_chunk_inputs(card, 5, K, T, D, crowd, streams)
+    cfg = TrackerConfig(max_tracks=T, max_detections=D)
+    before = TC.tracker_chunk_cuda.launches
+    got = TC.tracker_chunk_cuda(state, dets, cfg, adv)
+    assert TC.tracker_chunk_cuda.launches == before + 1
+    want = TC.tracker_chunk_plain(state, dets, cfg, adv)
+    torch.cuda.synchronize()
+    assert_chunk_equal(got, want)
+    assert got[1]["emit"].any()
+    # without a mask every frame advances
+    got = TC.tracker_chunk_cuda(state, dets, cfg)
+    want = TC.tracker_chunk_plain(state, dets, cfg)
+    assert_chunk_equal(got, want)
+
+
+def test_tracker_chunk_kernel_refuses_what_it_does_not_run(card):
+    import dataclasses
+    from posebyte_tpu_torch.core.config import TrackerConfig
+    from posebyte_tpu_torch.ops import tracker_chunk as TC
+    dets, adv, state = tracker_chunk_inputs(card, 1, 4, 128, 64, 0)
+    before = TC.tracker_chunk_cuda.launches
+    for cfg in (TrackerConfig(motion_model="kalman136"),
+                TrackerConfig(reid_weight=0.5),
+                TrackerConfig(torso_tier=False)):
+        with pytest.raises(NotImplementedError):
+            TC.tracker_chunk_cuda(state, dets, cfg, adv)
+    with pytest.raises(ValueError):
+        TC.tracker_chunk_cuda(TC._pick(TC._stack([state]), 0),
+                              dataclasses.replace(dets, poses=dets.poses
+                                                  .cpu()), TrackerConfig())
+    with pytest.raises(TypeError):
+        TC.tracker_chunk_cuda(state, dataclasses.replace(
+            dets, scores=dets.scores.double()), TrackerConfig())
+    with pytest.raises(ValueError):
+        TC.tracker_chunk_cuda(state, dets, TrackerConfig(max_tracks=64))
+    assert TC.tracker_chunk_cuda.launches == before
+
+
+def test_chunk_pipeline_card_matches_cpu(card):
+    """The chunk path: one Kernel 1 and one Kernel 3 launch per chunk, no
+    auction launch, and the CPU's track ids (fp32, keypoints within
+    1e-2 px)."""
+    from posebyte_tpu_torch.core import DetectorConfig, PipelineConfig
+    from posebyte_tpu_torch.models import load_params
+    from posebyte_tpu_torch.ops import tracker_chunk as TC
+    from posebyte_tpu_torch.pipeline import PosePipeline
+    from posebyte_tpu_torch.utils.synthetic import SyntheticScene, \
+        render_frame
+
+    asset = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "assets",
+        "yolov8n-pose-synthetic256.safetensors")
+    cfg = PipelineConfig(detector=DetectorConfig(input_size=256,
+                                                 num_anchors=1344),
+                         precision="fp32")
+    params = load_params(asset)[0]
+    pipes = [PosePipeline(cfg, params, device=d) for d in ("cpu", card)]
+    scene = SyntheticScene(4, 1280, 720, seed=11)
+    kernels = (N.nms_keep_cuda, A.auction_assign_cuda, TC.tracker_chunk_cuda)
+    for _ in range(2):
+        frames = np.stack([render_frame(scene.step(), 1280, 720)
+                           for _ in range(6)])
+        before = [k.launches for k in kernels]
+        cpu, gpu = (p.fetch_chunk_outputs(p.process_chunk(frames), 1280,
+                                          720) for p in pipes)
+        assert [k.launches - b for k, b in zip(kernels, before)] == [1, 0, 1]
+        for a, b in zip(gpu, cpu):
+            assert [t.track_id for t in a] == [t.track_id for t in b]
+            for x, y in zip(a, b):
+                np.testing.assert_allclose(x.keypoints, y.keypoints,
+                                           atol=1e-2)
+    assert len(gpu[-1]) >= 3
+
+
+def test_stream_card_matches_process_frame(card):
+    from posebyte_tpu_torch.core import DetectorConfig, PipelineConfig
+    from posebyte_tpu_torch.models import load_params
+    from posebyte_tpu_torch.pipeline import PosePipeline
+    from posebyte_tpu_torch.utils.synthetic import SyntheticScene, \
+        render_frame
+
+    asset = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "assets",
+        "yolov8n-pose-synthetic256.safetensors")
+    cfg = PipelineConfig(detector=DetectorConfig(input_size=256,
+                                                 num_anchors=1344))
+    params = load_params(asset)[0]
+    scene = SyntheticScene(4, 1280, 720, seed=5)
+    frames = [render_frame(scene.step(), 1280, 720) for _ in range(6)]
+    a, b = (PosePipeline(cfg, params, device=card) for _ in range(2))
+    streamed = list(a.process_stream(iter(frames), sync_depth=2))
+    assert len(streamed) == 6
+    for fr, out in zip(frames, streamed):
+        want = b.process_frame(fr)
+        for k in ("ids", "emit", "poses", "num_active"):
+            assert torch.equal(out[k], want[k]), k

@@ -6,7 +6,8 @@ This holds the kernels' logic -- thread mapping, shared-memory layout,
 barriers and uniform loop exits, tie rules -- on a host without a card.
 Each emulated launch runs in a child process with a time limit, so a
 barrier that not every thread reaches fails the test instead of hanging
-it. Tolerance: none (keep masks and assignments equal). Needs g++ with
+it. Tolerance: none for keep masks, assignments and the tracker's
+integers; tracker floats within 1e-4 px (see assert_tracker_equal). Needs g++ with
 C++20; the card itself is tested in tests/test_torch_cuda.py.
 """
 import os
@@ -21,8 +22,12 @@ import torch
 
 from posebyte_tpu_torch.ops import assignment as A
 from posebyte_tpu_torch.ops import cuda_lib
+from posebyte_tpu_torch.core.config import TrackerConfig
+from posebyte_tpu_torch.core.structs import Detections, TrackerState
 from posebyte_tpu_torch.ops import nms as N
-from posebyte_tpu_torch.utils.synthetic import POSE_OFFSETS
+from posebyte_tpu_torch.ops import tracker_chunk as TC
+from posebyte_tpu_torch.utils.synthetic import POSE_OFFSETS, \
+    tracker_chunk_case
 
 torch.set_num_threads(2)
 
@@ -34,26 +39,45 @@ import ctypes, sys
 import numpy as np
 from posebyte_tpu_torch.ops import cuda_lib
 lib = ctypes.CDLL(sys.argv[1])
-for name, (restype, argtypes) in cuda_lib._SIGNATURES.items():
-    getattr(lib, name).restype = restype
-    getattr(lib, name).argtypes = argtypes
+
+
+def fn(name):
+    f = getattr(lib, name)
+    f.restype, f.argtypes = cuda_lib._SIGNATURES[name]
+    return f
+
+
 d = dict(np.load(sys.argv[3]))
 if sys.argv[2] == "nms":
     B, n = d["valid"].shape
     keep = np.zeros((B, n), np.uint8)
-    st = lib.posebyte_nms_keep(d["poses"].ctypes.data, d["boxes"].ctypes.data,
-                               d["valid"].ctypes.data, keep.ctypes.data, B, n,
-                               float(d["iou"]), float(d["oks"]),
-                               d["sig4"].ctypes.data, None)
+    st = fn("posebyte_nms_keep")(
+        d["poses"].ctypes.data, d["boxes"].ctypes.data,
+        d["valid"].ctypes.data, keep.ctypes.data, B, n, float(d["iou"]),
+        float(d["oks"]), d["sig4"].ctypes.data, None)
     np.savez(sys.argv[4], status=st, keep=keep)
-else:
+elif sys.argv[2] == "auction":
     B, R, C = d["cost"].shape
     row = np.zeros((B, R), np.int32)
     col = np.zeros((B, C), np.int32)
-    st = lib.posebyte_auction(d["cost"].ctypes.data, d["active"].ctypes.data,
-                              row.ctypes.data, col.ctypes.data, B, R, C,
-                              int(d["iters"]), float(d["eps0"]), None)
+    st = fn("posebyte_auction")(
+        d["cost"].ctypes.data, d["active"].ctypes.data, row.ctypes.data,
+        col.ctypes.data, B, R, C, int(d["iters"]), float(d["eps0"]), None)
     np.savez(sys.argv[4], status=st, row=row, col=col)
+else:
+    ins = [d[f"in{i}"] for i in range(15)]
+    S, K, D = ins[1].shape
+    T = ins[6].shape[1]
+    outs = [np.zeros_like(a) for a in ins[4:]] + [
+        np.zeros((S, K, D), np.int32), np.zeros((S, K, D), np.float32),
+        np.zeros((S, K, D, 17, 3), np.float32),
+        np.zeros((S, K, D, 4), np.float32), np.zeros((S, K, D), np.uint8),
+        np.zeros((S, K), np.int32)]
+    ptrs = (ctypes.c_void_p * 32)(*(a.ctypes.data for a in ins + outs))
+    st = fn("posebyte_tracker_chunk")(ptrs, d["iargs"].ctypes.data,
+                                      d["fargs"].ctypes.data, None)
+    np.savez(sys.argv[4], status=st, **{f"out{i}": a
+                                        for i, a in enumerate(outs)})
 """
 
 
@@ -178,3 +202,91 @@ def test_auction_kernel_source_matches_plain(emulated, cases):
                                     torch.from_numpy(active))
         np.testing.assert_array_equal(got["row"][b], row.numpy())
         np.testing.assert_array_equal(got["col"][b], col.numpy())
+
+
+def tracker_inputs(state, dets, cfg, advance):
+    """The kernel's input arrays (stream axis S = 1), in the order of the
+    wrapper's pointer table (ops/tracker_chunk.py::tracker_chunk_cuda)."""
+    K, D = dets.scores.shape
+    T = state.poses.shape[0]
+    arrs = [dets.poses, dets.scores, dets.valid, advance] + \
+        [getattr(state, n) for n, _ in TC._CARRIED] + \
+        [torch.stack([state.next_id, state.frame]), state.det_track_slot]
+    arrs = [a.numpy()[None] for a in arrs]
+    arrs = [a.astype(np.uint8) if a.dtype == bool else a for a in arrs]
+    iargs = np.asarray([1, K, T, D, cfg.min_hits, cfg.max_age,
+                        cfg.max_age + cfg.lost_window,
+                        A.auction_iterations(T), 2], np.int32)
+    return {**{f"in{i}": np.ascontiguousarray(a) for i, a in
+               enumerate(arrs)}, "iargs": iargs,
+            "fargs": TC._float_args(cfg, T)}
+
+
+def tracker_case(seed, K, T, D, crowd):
+    arrays, advance = tracker_chunk_case(seed, K, D, crowd=crowd)
+    dets = Detections(*(torch.from_numpy(a) for a in arrays))
+    return TrackerState.init(T, D), dets, torch.from_numpy(advance)
+
+
+def assert_tracker_equal(got, state, outs):
+    """Kernel outputs (the child process's out0..out16) against the plain
+    version's state and outputs: integers equal, floats within 1e-4 px
+    (the emulation takes expf from the host's libm, the plain version
+    from PyTorch's CPU kernels)."""
+    names = [n for n, _ in TC._CARRIED] + ["counters", "det_track_slot"] + \
+        list(TC.OUT_KEYS)
+    want = [getattr(state, n) for n, _ in TC._CARRIED] + \
+        [torch.stack([state.next_id, state.frame]), state.det_track_slot] + \
+        [outs[k] for k in TC.OUT_KEYS]
+    for i, (name, w) in enumerate(zip(names, want)):
+        g, w = got[f"out{i}"][0], w.numpy()
+        if w.dtype.kind == "f":
+            np.testing.assert_allclose(g, w, rtol=1e-6, atol=1e-4,
+                                       err_msg=name)
+        else:
+            np.testing.assert_array_equal(g.astype(w.dtype), w,
+                                          err_msg=name)
+
+
+@pytest.mark.parametrize("seed,K,T,D,crowd", [
+    (1, 12, 32, 16, 12),        # advance holes, crowded frames
+    (0, 12, 16, 16, 12),        # slot exhaustion
+    (1, 5, 128, 64, 40),        # the main path's pool, crowded frames
+])
+def test_tracker_kernel_source_matches_plain(emulated, seed, K, T, D,
+                                             crowd):
+    state, dets, advance = tracker_case(seed, K, T, D, crowd)
+    cfg = TrackerConfig(max_tracks=T, max_detections=D)
+    want_state, want_outs = TC.tracker_chunk_plain(state, dets, cfg, advance)
+    got = _launch(emulated, "tracker",
+                  **tracker_inputs(state, dets, cfg, advance))
+    assert_tracker_equal(got, want_state, want_outs)
+    assert not advance.all() and want_outs["emit"].any()
+    if T == 16:
+        assert int(want_outs["num_active"].max()) == T   # the pool is full
+
+
+def test_tracker_kernel_mutation_is_caught(emulated, tmp_path):
+    """A kernel with a broken rank rule (a detection counts itself) must
+    disagree with the plain version: the comparison above can fail."""
+    _, out = emulated
+    with open(os.path.join(cuda_lib.CSRC, "tracker_chunk.cu")) as f:
+        src = _to_cpp(f.read())
+    bad = src.replace("for (int e = 0; e < d; ++e)",
+                      "for (int e = 0; e <= d; ++e)")
+    assert bad != src
+    (out / "tracker_mutant.cpp").write_text(bad)
+    lib = tmp_path / "libmutant.so"
+    r = subprocess.run([shutil.which("g++"), "-std=c++20", "-O1", "-fPIC",
+                        "-shared", "-pthread", "-ffp-contract=off", "-I",
+                        str(out), "-o", str(lib),
+                        str(out / "tracker_mutant.cpp")],
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    state, dets, advance = tracker_case(1, 12, 32, 16, 12)
+    cfg = TrackerConfig(max_tracks=32, max_detections=16)
+    want_state, want_outs = TC.tracker_chunk_plain(state, dets, cfg, advance)
+    got = _launch((str(lib), out), "tracker",
+                  **tracker_inputs(state, dets, cfg, advance))
+    with pytest.raises(AssertionError):
+        assert_tracker_equal(got, want_state, want_outs)

@@ -1,0 +1,279 @@
+"""Plain version of Kernel 3 (posebyte_tpu_torch/ops/tracker_chunk.py::
+tracker_chunk_plain) against the JAX package, on the cv, no-Re-ID cases of
+tests/test_pallas_tracker.py.
+
+References: the jitted lax.scan of tracker_step + extract_outputs_device
+(with the serving scan's advance blend where a mask is given), and
+tracker_chunk_pallas in interpret mode. The same numpy detections go to
+both packages.
+
+Tolerances: integer outputs and state fields (ids, emit, num_active,
+states, hits, ages, last_frame, active, det_track_slot, next_id, frame)
+equal; poses, boxes and scores within 1e-5 px plus 1e-6 of their value,
+velocities within 1e-4 px/frame: the tracker tolerance of
+tests/test_torch_tracker.py (XLA's CPU compiler fuses poses + K * innov
+into one FMA, PyTorch rounds twice: one float32 ulp). Against the Pallas
+kernel, whose one-hot selections and Python-double constants round
+differently again, poses within 1e-3 px, the bar tests/test_pallas_tracker
+.py holds that kernel to.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from posebyte_tpu.core.config import TrackerConfig as JConfig
+from posebyte_tpu.core.structs import Detections as JDetections
+from posebyte_tpu.core.structs import TrackerState as JState
+from posebyte_tpu.ops.pallas_tracker import tracker_chunk_pallas
+from posebyte_tpu.tracker.output import extract_outputs_device as j_extract
+from posebyte_tpu.tracker.step import tracker_step as j_step
+from posebyte_tpu.utils.synthetic import SyntheticScene, poses_to_detections
+
+from posebyte_tpu_torch.core.config import TrackerConfig
+from posebyte_tpu_torch.core.structs import Detections, TrackerState
+from posebyte_tpu_torch.ops import tracker_chunk as TC
+
+torch.set_num_threads(2)
+
+INT_STATE = ("ids", "states", "hits", "ages", "last_frame", "active",
+             "next_id", "frame", "det_track_slot")
+FLOAT_STATE = ("poses", "velocities", "scores")
+INT_OUT = ("ids", "emit", "num_active")
+FLOAT_OUT = ("scores", "poses", "boxes")
+
+
+def _jax_scan(state, dets, cfg, advance=None):
+    """lax.scan of the JAX tracker step; with `advance`, the serving
+    scan's blend (tests/test_pallas_tracker.py::_gated_scan_reference)."""
+    def one(state, x):
+        det, adv = x
+        new, aux = j_step(state, det, cfg)
+        if adv is not None:
+            new = jax.tree.map(lambda n, o: jnp.where(adv, n, o), new, state)
+        ids, scores, poses, boxes, emit = j_extract(new, det.scores, cfg)
+        na = aux["num_active"]
+        if adv is not None:
+            emit, na = emit & adv, jnp.where(adv, na, 0)
+        return new, {"ids": ids, "scores": scores, "poses": poses,
+                     "boxes": boxes, "emit": emit, "num_active": na}
+    return jax.jit(lambda s, d, a: jax.lax.scan(one, s, (d, a)))(
+        state, dets, advance)
+
+
+def _stack(dets):
+    return JDetections(*(jnp.stack([getattr(d, f) for d in dets])
+                         for f in ("poses", "boxes", "scores", "valid")))
+
+
+def _to_torch(obj, cls):
+    return cls(**{f.name: torch.from_numpy(np.array(getattr(obj, f.name)))
+                  for f in dataclasses.fields(cls)})
+
+
+def _check(got, want, advanced=None, pose_atol=1e-5):
+    """got: the port's (state, outs); want: JAX's. `advanced` limits the
+    frame outputs compared to the advanced frames, except emit and
+    num_active."""
+    (gs, go), (ws, wo) = got, jax.device_get(want)
+    for f in INT_STATE:
+        np.testing.assert_array_equal(getattr(gs, f).numpy(),
+                                      np.asarray(getattr(ws, f)), err_msg=f)
+    for f in FLOAT_STATE:
+        np.testing.assert_allclose(
+            getattr(gs, f).numpy(), np.asarray(getattr(ws, f)), rtol=1e-6,
+            atol=1e-4 if f == "velocities" else pose_atol, err_msg=f)
+    sel = slice(None) if advanced is None else np.asarray(advanced)
+    for k in INT_OUT:
+        g, w = go[k].numpy(), np.asarray(wo[k])
+        if k == "ids":
+            g, w = g[sel], w[sel]
+        np.testing.assert_array_equal(g, w, err_msg=k)
+    for k in FLOAT_OUT:
+        np.testing.assert_allclose(go[k].numpy()[sel], np.asarray(wo[k])[sel],
+                                   rtol=1e-6, atol=pose_atol, err_msg=k)
+
+
+def _run(det_list, T=128, D=64, cfg_kw=None, advance=None, pallas=False,
+         state=None):
+    cfg_kw = dict(max_tracks=T, max_detections=D, **(cfg_kw or {}))
+    jcfg, tcfg = JConfig(**cfg_kw), TrackerConfig(**cfg_kw)
+    jdets = _stack(det_list)
+    jstate = JState.init(T, D) if state is None else state
+    tdets = _to_torch(jdets, Detections)
+    tstate = _to_torch(jstate, TrackerState)
+    tadv = None if advance is None else torch.from_numpy(np.asarray(advance))
+    got = TC.tracker_chunk_plain(tstate, tdets, tcfg, tadv)
+    jadv = None if advance is None else jnp.asarray(advance)
+    want = _jax_scan(jstate, jdets, jcfg, jadv)
+    _check(got, want, advance)
+    if pallas:
+        want = tracker_chunk_pallas(jstate, jdets, jcfg, advance=jadv,
+                                    interpret=True)
+        _check(got, want, pose_atol=1e-3)
+    return got
+
+
+def _dropouts(scene, frames, capacity, seed, p=0.3, score=None):
+    rng = np.random.default_rng(seed)
+    out = []
+    for gt in scene.frames(frames):
+        keep = rng.random(len(gt)) > p
+        subset = gt[keep] if keep.any() else gt[:1]
+        out.append(poses_to_detections(
+            subset, capacity, score=score(rng) if score else
+            0.4 + 0.5 * rng.random()))
+    return out
+
+
+def test_moving_scene():
+    scene = SyntheticScene(5, 1280, 720, seed=3)
+    _run([poses_to_detections(gt, 64) for gt in scene.frames(6)],
+         pallas=True)
+
+
+def test_dropouts():
+    _run(_dropouts(SyntheticScene(6, 960, 540, seed=9), 10, 64, 4))
+
+
+def test_empty_and_crowded_frames():
+    scene = SyntheticScene(40, 3840, 2160, seed=5, scale_range=(60.0, 90.0))
+    crowded = [poses_to_detections(gt, 64) for gt in scene.frames(3)]
+    empty = JDetections.empty(64)
+    _run([empty, crowded[0], crowded[1], empty, crowded[2]])
+
+
+def test_continues_from_state():
+    """Two chunks threaded through the state equal one long scan."""
+    scene = SyntheticScene(4, 640, 480, seed=11)
+    dets = [poses_to_detections(gt, 64) for gt in scene.frames(8)]
+    first, _ = _run(dets[:4])
+    jstate = JState(**{f.name: jnp.asarray(getattr(first, f.name).numpy())
+                       for f in dataclasses.fields(JState)})
+    _run(dets[4:], state=jstate)
+
+
+@pytest.mark.parametrize("T,D,cfg_kw", [
+    (64, 32, dict(min_hits=1)),
+    (128, 64, dict(match_threshold=0.3, high_thresh=0.5,
+                   new_track_thresh=0.6, max_age=3, lost_window=2,
+                   gate_threshold=2.0, dedup_iou_threshold=0.5)),
+])
+def test_config_variations(T, D, cfg_kw):
+    _run(_dropouts(SyntheticScene(5, 800, 600, seed=13), 7, D, 2, p=0.25,
+                   score=lambda r: 0.3 + 0.7 * r.random()),
+         T=T, D=D, cfg_kw=cfg_kw)
+
+
+def test_slot_exhaustion():
+    scene = SyntheticScene(12, 1920, 1080, seed=6, scale_range=(60.0, 90.0))
+    (state, outs) = _run([poses_to_detections(gt, 16)
+                          for gt in scene.frames(4)], T=8, D=16,
+                         cfg_kw=dict(min_hits=1))
+    assert bool(state.active.all())
+
+
+def test_all_empty_from_fresh_state():
+    state, outs = _run([JDetections.empty(64) for _ in range(6)])
+    assert not outs["emit"].any() and int(state.next_id) == 1
+    assert int(state.frame) == 6
+
+
+def test_advance_gating():
+    scene = SyntheticScene(4, 960, 540, seed=23)
+    advance = np.asarray([True, True, False, True, False, False, True,
+                          True])
+    state, outs = _run([poses_to_detections(gt, 64)
+                        for gt in scene.frames(8)], advance=advance,
+                       pallas=True)
+    assert not outs["emit"][~advance].any()
+    assert (outs["ids"][~advance] == -1).all()
+    assert int(state.frame) == int(advance.sum())
+
+
+def test_advance_all_true_is_identity():
+    scene = SyntheticScene(3, 640, 480, seed=29)
+    dets = [poses_to_detections(gt, 64) for gt in scene.frames(5)]
+    sa, oa = _run(dets, advance=np.ones(5, bool))
+    sb, ob = _run(dets)
+    for k in oa:
+        assert torch.equal(oa[k], ob[k]), k
+    for f in dataclasses.fields(sa):
+        assert torch.equal(getattr(sa, f.name), getattr(sb, f.name)), f.name
+
+
+def test_starved_chunk_then_resume():
+    scene = SyntheticScene(3, 640, 480, seed=31)
+    dets = [poses_to_detections(gt, 64) for gt in scene.frames(8)]
+    state, _ = _run(dets[:4])
+    jstate = JState(**{f.name: jnp.asarray(getattr(state, f.name).numpy())
+                       for f in dataclasses.fields(JState)})
+    starved, out = _run(dets[4:], advance=np.zeros(4, bool), state=jstate)
+    assert not out["emit"].any()
+    for f in dataclasses.fields(state):
+        assert torch.equal(getattr(starved, f.name), getattr(state, f.name))
+    resumed, out2 = _run(dets[4:], advance=np.ones(4, bool), state=jstate)
+    assert int(resumed.frame) == int(state.frame) + 4 and out2["emit"].any()
+
+
+def test_dedup_stress():
+    base = SyntheticScene(1, 640, 480, seed=30,
+                          scale_range=(100.0, 120.0)).step()[0]
+    rng = np.random.default_rng(5)
+    dets = []
+    for _ in range(6):
+        poses = np.stack([base + rng.normal(0, 1.5, base.shape)
+                          .astype(np.float32) for _ in range(10)])
+        poses[:, :, 2] = 1.0
+        dets.append(poses_to_detections(poses, 64,
+                                        score=0.5 + 0.5 * rng.random()))
+    _run(dets)
+
+
+def test_large_detection_pool():
+    scene = SyntheticScene(50, 3840, 2160, seed=21, scale_range=(50.0, 80.0))
+    _run([poses_to_detections(gt, 128) for gt in scene.frames(4)], T=128,
+         D=128, pallas=True)
+
+
+def test_streams_match_one_stream_each():
+    """A leading stream axis runs each stream as its own chunk."""
+    states, dets = [], []
+    for s in range(3):
+        scene = SyntheticScene(3 + s, 640, 480, seed=20 + s)
+        jd = _stack([poses_to_detections(gt, 64) for gt in scene.frames(5)])
+        dets.append(_to_torch(jd, Detections))
+        states.append(TrackerState.init(128, 64))
+    cfg = TrackerConfig()
+    adv = torch.tensor([[True] * 5, [True, False, True, True, False],
+                        [False] * 5])
+    vs, vo = TC.tracker_chunk_plain(TC._stack(states), TC._stack(dets), cfg,
+                                    adv)
+    for s in range(3):
+        rs, ro = TC.tracker_chunk_plain(states[s], dets[s], cfg, adv[s])
+        for k in ro:
+            assert torch.equal(vo[k][s], ro[k]), k
+        for f in dataclasses.fields(rs):
+            assert torch.equal(getattr(vs, f.name)[s],
+                               getattr(rs, f.name)), f.name
+
+
+def test_dispatch_and_refusals():
+    state = TrackerState.init(16, 8)
+    dets = Detections(torch.zeros(2, 8, 17, 3), torch.zeros(2, 8, 4),
+                      torch.zeros(2, 8), torch.zeros(2, 8, dtype=torch.bool))
+    cfg = TrackerConfig(max_tracks=16, max_detections=8)
+    s, o = TC.tracker_chunk(state, dets, cfg)
+    assert int(s.frame) == 2 and o["ids"].shape == (2, 8)
+    with pytest.raises(ValueError):           # the kernel takes CUDA only
+        TC.tracker_chunk_cuda(state, dets, cfg)
+    for bad in (dict(motion_model="kalman136"), dict(reid_weight=0.3),
+                dict(torso_tier=False)):
+        with pytest.raises(NotImplementedError):
+            TC.tracker_chunk(state, dets, dataclasses.replace(cfg, **bad))
+        with pytest.raises(NotImplementedError):
+            TC.tracker_chunk_cuda(state, dets, dataclasses.replace(cfg,
+                                                                   **bad))
