@@ -26,12 +26,30 @@ Phases, each printing one JSON line with its elapsed seconds:
   chunk_cpu_vs_card  the chunk path in fp32 at K = 8 on the CPU (plain
                versions) and on the card (Kernels 1 and 3): track ids
                equal, keypoints within 1e-2 px
-Then a line {"kernels": [...]} with each kernel's launches (summed over
-the per-frame and the chunk path's runs), error, times and bound, and last
-{"ok": true, "device": {...}}. Any failure raises and exits non-zero
-before that line; a hang is cut by faulthandler.
+  reid_kernels Kernel 3 with Re-ID (reid_weight 0.3) against its plain
+               version on the card at S = 1 and S = 3 streams of the stress
+               case, at capacities D = 64 and D = 128, with the embeddings
+               of both appearance sources (the pose-colour descriptor and
+               the learned head of assets/reid-head-synthetic.safetensors)
+               sampled from the frames the detections came from; integer
+               outputs must be equal and the float difference 0
+  reid_main_path  the per-frame path with Re-ID on the card, bf16, 16 frames
+               per source: launches 1 (NMS) and 3 (auction) per frame
+  reid_chunk_path the chunk path with Re-ID at K = 128, bf16, one warm-up
+               and two timed chunks per source: launches per chunk exactly
+               nms_keep 1, tracker_chunk 1, auction 0; tracks within 10 px
+               of the 6 people
+  reid_cpu_vs_card  per source, a chunk of K = 8 and 4 per-frame frames in
+               fp32 on the CPU and on the card: track ids equal, keypoints
+               within 1e-2 px
+Each path's launch counts are set to 0 just before it runs and read just
+after. Then a line {"kernels": [...]} with each kernel's launches (summed
+over the paths' runs), error, times and bound (the tracker chunk's also
+with Re-ID), and last {"ok": true, "device": {...}}. Any failure raises
+and exits non-zero before that line; a hang is cut by faulthandler.
 """
 import faulthandler
+import functools
 import json
 import os
 import subprocess
@@ -47,10 +65,14 @@ CMP_CHUNK = 8
 WIDTH, HEIGHT = 1280, 720
 N_PERSONS = 6
 SEED = 7
+REID_WEIGHT = 0.3      # the repo's one Re-ID configuration
+LETTERBOX = 640        # the model input, where the Re-ID sources sample
+HEAD_ASSET = "reid-head-synthetic.safetensors"
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and float32
 # operations/s outside the tensor cores.
 HBM_BYTES_S = 3.35e12
 F32_OPS_S = 67e12
+INT8_OPS_S = 1979e12   # dense int8 tensor-core operations/s
 
 
 def emit(phase, t0, **kw):
@@ -146,8 +168,8 @@ def greedy_sweeps(poses, boxes, valid):
     return sweeps
 
 
-def bound(nbytes, ops):
-    t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / F32_OPS_S
+def bound(nbytes, ops, ops_s=F32_OPS_S):
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / ops_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -188,27 +210,37 @@ def chunk_diff(got, want):
     return mism, err
 
 
-def tracker_chunk_work(dets, adv, outs, T=128):
+def tracker_chunk_work(dets, adv, outs, T=128, emb=None):
     """(bytes, float32 operations) of one chunk on these inputs: each
-    input read once (detections, mask, initial state), each output written
+    input read once (detections, mask, initial state with its embeddings,
+    with Re-ID the detections' embeddings [K, D, 51]), each output written
     once (frame outputs, final state); per frame, ~30 operations for the
     gate of each active-track x valid-detection pair plus ~8 per keypoint
     of the OKS (17) and torso OKS (4) on each such pair, and ~20 per track
-    pair of the dedup. The active tracks entering a frame are those of the
-    last advanced frame's output."""
+    pair of the dedup. With Re-ID also ~15 per keypoint (the two energies,
+    the dot product, the three sums) and ~8 more (square roots, division,
+    blend) for the cosine of each such pair, ~5 per keypoint for each
+    valid detection's energies, and ~6 per component for the EMA of each
+    matched track (at most min(active, valid) of them). The active tracks
+    entering a frame are those of the last advanced frame's output."""
     K, D = dets.scores.shape[-2:]
-    state_bytes = T * (51 + 34 + 1) * 4 + T * 6 * 4 + T + 8 + D * 4
+    state_bytes = (T * (51 + 34 + 1 + 51) * 4 + T * 6 * 4 + T + 8
+                   + D * 4)
     nbytes = (dets.poses.numel() * 4 + dets.scores.numel() * 4
               + dets.valid.numel() + adv.numel() + 2 * state_bytes
-              + sum(v.numel() * v.element_size() for v in outs.values()))
+              + sum(v.numel() * v.element_size() for v in outs.values())
+              + (emb.numel() * 4 if emb is not None else 0))
     na = outs["num_active"].reshape(-1, K).tolist()
     nv = dets.valid.reshape(-1, K, D).sum(-1).tolist()
     ad = adv.reshape(-1, K).tolist()
+    pair = 30 + 8 * (17 + 4) + (15 * 17 + 8 if emb is not None else 0)
     ops = 0
     for s_na, s_nv, s_ad in zip(na, nv, ad):
         active = 0
         for k in range(K):
-            ops += active * s_nv[k] * (30 + 8 * (17 + 4)) + 20 * active ** 2
+            ops += active * s_nv[k] * pair + 20 * active ** 2
+            if emb is not None:
+                ops += 5 * 17 * s_nv[k] + 6 * 51 * min(active, s_nv[k])
             if s_ad[k]:
                 active = s_na[k]
     return nbytes, ops
@@ -251,6 +283,17 @@ def tracker_chunk_row(dev):
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         "shape": f"K={CHUNK},T=128,D=64,S=1 and 3,emitted={emitted}",
         "bytes": nbytes, "ops": ops}
+
+
+def conv3x3_int8_work(B=2, H=8, W=8, Cin=128, O=128):
+    """(bytes, int8 operations) of the TPU kernel that is not ported yet,
+    posebyte_tpu/ops/pallas_conv.py::conv3x3_int8_pallas, at the shape of
+    its JAX test (tests/test_pallas_kernels.py:79): x [B, H, W, C] int8 and
+    w [3, 3, C, O] int8 read once, the scale [O] float32 read once, the
+    output [B, H, W, O] bf16 written once; a multiply and an add per tap,
+    input channel and output element."""
+    nbytes = B * H * W * Cin + 9 * Cin * O + 4 * O + 2 * B * H * W * O
+    return nbytes, 2 * 9 * Cin * B * H * W * O
 
 
 def phase_kernels(t0):
@@ -323,7 +366,13 @@ def phase_kernels(t0):
     done = {"nms_keep": N.nms_keep_cuda.launches,
             "auction": A.auction_assign_cuda.launches,
             "tracker_chunk": TC.tracker_chunk_cuda.launches}
-    emit("kernels", t0, kernels=[
+    c_bytes, c_ops = conv3x3_int8_work()
+    c_ms, c_by = bound(c_bytes, c_ops, INT8_OPS_S)
+    emit("kernels", t0, not_ported=[{
+        "name": "conv3x3_int8",
+        "replaces": "posebyte_tpu/ops/pallas_conv.py:56",
+        "shape": "B=2,H=W=8,C=O=128", "bytes": c_bytes, "ops": c_ops,
+        "bound_ms": c_ms, "bound_by": c_by}], kernels=[
         {"name": r["name"], "launches": done[k] - start[k],
          "mismatches": r["mismatches"], "max_abs_err": r["max_abs_err"],
          "kernel_ms": r["ms"], "ms_per_frame": r.get("ms_per_frame"),
@@ -423,16 +472,25 @@ def phase_cpu_vs_card(t0, params):
         raise SystemExit("the card and the CPU disagree")
 
 
-def make_chunks(n_chunks, k):
-    """n_chunks consecutive chunks [k, H, W, 3] of one synthetic scene and
-    the people's poses in each chunk's last frame."""
+@functools.lru_cache(maxsize=4)
+def _chunks(n_chunks, k):
     import numpy as np
     from posebyte_tpu_torch.utils.synthetic import SyntheticScene, \
         render_frame
     scene = SyntheticScene(N_PERSONS, WIDTH, HEIGHT, seed=SEED)
+    out = []
     for _ in range(n_chunks):
         gts = [scene.step() for _ in range(k)]
-        yield np.stack([render_frame(g, WIDTH, HEIGHT) for g in gts]), gts[-1]
+        out.append((np.stack([render_frame(g, WIDTH, HEIGHT) for g in gts]),
+                    gts[-1]))
+    return out
+
+
+def make_chunks(n_chunks, k):
+    """n_chunks consecutive chunks [k, H, W, 3] of one synthetic scene and
+    the people's poses in each chunk's last frame (rendered once, shared by
+    the phases)."""
+    yield from _chunks(n_chunks, k)
 
 
 def track_errors(res, gt):
@@ -550,6 +608,246 @@ def phase_chunk_cpu_vs_card(t0, params):
         raise SystemExit("the chunk path on the card and the CPU disagree")
 
 
+def reid_sources(dev, params_dir):
+    """{name: (embed_fn, reid_params)} of the two appearance sources on
+    the card, sampling a raw uint8 letterbox as the chunk path gives it:
+    the pose-colour descriptor and the learned head."""
+    from posebyte_tpu_torch.models import load_reid_head
+    from posebyte_tpu_torch.ops.reid import make_embed_fn
+    head = load_reid_head(os.path.join(params_dir, HEAD_ASSET))
+    head_dev = {k: v.to(dev) for k, v in head.items()}
+    return {"descriptor": (make_embed_fn(None, True), None),
+            "head": (make_embed_fn(head_dev, True), head)}
+
+
+def reid_chunk_case(dev, streams, D=64, seed=SEED):
+    """chunk_case's stress detections at capacity D (crowded frames of up
+    to D - 24 extra poses) made in the coordinates of a LETTERBOX x
+    LETTERBOX model input, the frames of the scene they come from rendered
+    at that size (where the Re-ID sources sample), the advance mask and a
+    fresh pool of 128 slots: (state, dets, advance, frames [S, K, L, L, 3]
+    u8)."""
+    import numpy as np
+    import torch
+    from posebyte_tpu_torch.core.structs import Detections, TrackerState
+    from posebyte_tpu_torch.ops.tracker_chunk import _stack
+    from posebyte_tpu_torch.utils.synthetic import SyntheticScene, \
+        render_frame, tracker_chunk_case
+    dets, advs, frames = [], [], []
+    for s in range(streams):
+        arrays, adv = tracker_chunk_case(seed + s, CHUNK, D, n_persons=6,
+                                         width=LETTERBOX, height=LETTERBOX,
+                                         crowd=D - 24)
+        scene = SyntheticScene(6, LETTERBOX, LETTERBOX, seed=seed + s)
+        frames.append(np.stack([render_frame(scene.step(), LETTERBOX,
+                                             LETTERBOX)
+                                for _ in range(CHUNK)]))
+        dets.append(Detections(*(torch.from_numpy(a).to(dev)
+                                 for a in arrays)))
+        advs.append(torch.from_numpy(adv).to(dev))
+    state = TrackerState.init(128, D, dev)
+    return (_stack([state] * streams), _stack(dets), torch.stack(advs),
+            torch.from_numpy(np.stack(frames)).to(dev))
+
+
+def phase_reid_kernels(t0, rows, sources):
+    """Kernel 3 with Re-ID against its plain version on the card, S = 1
+    and S = 3, D = 64 and D = 128, embeddings of both sources: integer
+    outputs equal and float difference 0. Its time with the descriptor's
+    embeddings at S = 1, D = 64, its plain version's, and its bound."""
+    import torch
+    from posebyte_tpu_torch.core.config import TrackerConfig
+    from posebyte_tpu_torch.ops import tracker_chunk as TC
+    res, timed = [], None
+    for D in (64, 128):
+        cfg = TrackerConfig(max_detections=D, reid_weight=REID_WEIGHT)
+        for streams in (1, 3):
+            state, dets, adv, frames = reid_chunk_case("cuda", streams, D)
+            for name, (embed, _) in sources.items():
+                with torch.no_grad():
+                    emb = embed(frames.flatten(0, 1),
+                                dets.poses.flatten(0, 1))
+                emb = emb.reshape(*dets.scores.shape, -1).contiguous()
+                got = TC.tracker_chunk_cuda(state, dets, cfg, adv, emb)
+                want = TC.tracker_chunk_plain(state, dets, cfg, adv, emb)
+                torch.cuda.synchronize()
+                m, e = chunk_diff(got, want)
+                res.append({"source": name, "streams": streams, "D": D,
+                            "mismatches": m, "max_abs_err": e,
+                            "emitted": int(got[1]["emit"].sum()),
+                            "tracks_with_embedding": int(
+                                (got[0].embeddings.abs().sum(-1) > 0).sum())})
+                if m or e != 0.0:
+                    raise SystemExit(
+                        f"tracker_chunk with Re-ID ({name}, S={streams}, "
+                        f"D={D}): {m} integer mismatches, float error {e}")
+                if D == 64 and streams == 1 and name == "descriptor":
+                    timed = (TC._pick(state, 0), TC._pick(dets, 0), adv[0],
+                             emb[0], got[1], cfg)
+            del frames
+    one_state, one_dets, one_adv, one_emb, outs, cfg = timed
+    run = (lambda: TC.tracker_chunk_cuda(one_state, one_dets, cfg, one_adv,
+                                         one_emb))
+    nbytes, ops = tracker_chunk_work(one_dets, one_adv, outs, emb=one_emb)
+    b_ms, b_by = bound(nbytes, ops)
+    row = rows["tracker_chunk"]
+    row.update(
+        ms_reid=cuda_ms(run, 20),
+        plain_ms_reid=cuda_ms(lambda: TC.tracker_chunk_plain(
+            one_state, one_dets, cfg, one_adv, one_emb), 1),
+        bound_ms_reid=b_ms, bound_by_reid=b_by,
+        max_abs_err_reid=max(r["max_abs_err"] for r in res),
+        mismatches_reid=sum(r["mismatches"] for r in res))
+    emit("reid_kernels", t0, cases=res, ms=row["ms_reid"],
+         ms_per_frame=row["ms_reid"] / CHUNK,
+         plain_ms=row["plain_ms_reid"], bound_ms=b_ms, bound_by=b_by,
+         bytes=nbytes, ops=ops,
+         smem_bytes={f"D={d}": TC.smem_bytes(128, d, True)
+                     for d in (64, 128)},
+         shape=f"K={CHUNK},T=128,D=64 and 128,S=1 and 3,"
+               f"reid_weight={REID_WEIGHT}; timed at D=64,S=1")
+
+
+def _kernel_counts():
+    from posebyte_tpu_torch.ops.assignment import auction_assign_cuda
+    from posebyte_tpu_torch.ops.nms import nms_keep_cuda
+    from posebyte_tpu_torch.ops.tracker_chunk import tracker_chunk_cuda
+    return {"nms_keep": nms_keep_cuda, "auction": auction_assign_cuda,
+            "tracker_chunk": tracker_chunk_cuda}
+
+
+def phase_reid_main_path(t0, params, rows, sources):
+    """The per-frame path with Re-ID, each source: FRAMES frames through
+    process_frame + fetch_outputs; 1 NMS and 3 auction launches per frame."""
+    import numpy as np
+    from posebyte_tpu_torch.core import PipelineConfig, TrackerConfig
+    from posebyte_tpu_torch.pipeline import PosePipeline
+    gts, frames = make_frames(FRAMES)
+    cfg = PipelineConfig(tracker=TrackerConfig(reid_weight=REID_WEIGHT))
+    kernels = _kernel_counts()
+    out = {}
+    for name, (_, reid_params) in sources.items():
+        pipe = PosePipeline(cfg, params, reid_params=reid_params)
+        for fn in kernels.values():
+            fn.launches = 0
+        ms = []
+        for fr in frames:
+            t = time.perf_counter()
+            res = pipe.fetch_outputs(pipe.process_frame(fr), WIDTH, HEIGHT)
+            ms.append((time.perf_counter() - t) * 1e3)
+            for r in res:
+                if not (np.isfinite(r.keypoints).all()
+                        and np.isfinite(r.bbox).all()):
+                    raise SystemExit("non-finite Re-ID track output")
+        launches = {k: fn.launches for k, fn in kernels.items()}
+        errs = track_errors(res, gts[-1])
+        out[name] = {"launches": launches,
+                     "ms_per_frame_after_warmup": float(np.mean(ms[4:])),
+                     "last_frame_kp_err_px": errs}
+        for k, r in rows.items():
+            r["launches"] += launches[k]
+        if launches != {"nms_keep": FRAMES, "auction": 3 * FRAMES,
+                        "tracker_chunk": 0}:
+            raise SystemExit(f"Re-ID per-frame launch counts ({name}) "
+                             f"{launches}, expected {FRAMES}, "
+                             f"{3 * FRAMES} and 0")
+        if max(errs) > 10.0:
+            raise SystemExit(f"Re-ID tracks ({name}) miss the synthetic "
+                             f"people: {errs}")
+    emit("reid_main_path", t0, frames=FRAMES, sources=out)
+
+
+def phase_reid_chunk_path(t0, params, rows, sources):
+    """The chunk path with Re-ID at K = CHUNK, each source: one warm-up
+    and TIMED_CHUNKS timed chunks; launches per chunk 1 / 0 / 1."""
+    import numpy as np
+    import torch
+    from posebyte_tpu_torch.core import PipelineConfig, TrackerConfig
+    from posebyte_tpu_torch.pipeline import PosePipeline
+    cfg = PipelineConfig(tracker=TrackerConfig(reid_weight=REID_WEIGHT))
+    kernels = _kernel_counts()
+    out = {}
+    for name, (_, reid_params) in sources.items():
+        pipe = PosePipeline(cfg, params, reid_params=reid_params)
+        torch.cuda.reset_peak_memory_stats()
+        for fn in kernels.values():
+            fn.launches = 0
+        ms, per_chunk, errs = [], [], []
+        for frames, gt in make_chunks(1 + TIMED_CHUNKS, CHUNK):
+            before = {k: fn.launches for k, fn in kernels.items()}
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = pipe.fetch_chunk_outputs(pipe.process_chunk(frames), WIDTH,
+                                           HEIGHT)
+            ms.append((time.perf_counter() - t) * 1e3)
+            per_chunk.append({k: fn.launches - before[k]
+                              for k, fn in kernels.items()})
+            errs = track_errors(res[-1], gt)
+            for r in res:
+                for tr in r:
+                    if not (np.isfinite(tr.keypoints).all()
+                            and np.isfinite(tr.bbox).all()):
+                        raise SystemExit("non-finite Re-ID track output")
+        launches = {k: fn.launches for k, fn in kernels.items()}
+        emb = pipe.state.embeddings
+        timed = ms[1:]
+        out[name] = {
+            "launches_per_chunk": per_chunk, "ms_first_chunk": ms[0],
+            "ms_per_chunk": timed,
+            "frames_per_s": CHUNK * len(timed) / (sum(timed) / 1e3),
+            "last_frame_kp_err_px": errs,
+            "tracks_with_embedding": int((emb.abs().sum(-1) > 0).sum()),
+            "embeddings_finite": bool(torch.isfinite(emb).all()),
+            "peak_mem_mb": torch.cuda.max_memory_allocated() / 2**20}
+        for k, r in rows.items():
+            r["launches"] += launches[k]
+        if any(c != {"nms_keep": 1, "auction": 0, "tracker_chunk": 1}
+               for c in per_chunk):
+            raise SystemExit(f"Re-ID chunk launch counts ({name}) per chunk "
+                             f"{per_chunk}, expected nms_keep 1, "
+                             "tracker_chunk 1, auction 0")
+        if max(errs) > 10.0 or not out[name]["embeddings_finite"]:
+            raise SystemExit(f"Re-ID chunk tracks ({name}) miss the "
+                             f"synthetic people or are not finite: {errs}")
+    emit("reid_chunk_path", t0, chunk=CHUNK, sources=out)
+
+
+def phase_reid_cpu_vs_card(t0, params, sources):
+    """Per source, fp32: a chunk of CMP_CHUNK frames, then 4 per-frame
+    frames, on the CPU and on the card; ids equal, keypoints within
+    1e-2 px."""
+    import numpy as np
+    from posebyte_tpu_torch.core import PipelineConfig, TrackerConfig
+    from posebyte_tpu_torch.pipeline import PosePipeline
+    frames, _ = next(make_chunks(1, CMP_CHUNK + 4))
+    cfg = PipelineConfig(tracker=TrackerConfig(reid_weight=REID_WEIGHT),
+                         precision="fp32")
+    out = {}
+    for name, (_, reid_params) in sources.items():
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            pipe = PosePipeline(cfg, params, device=dev,
+                                reid_params=reid_params)
+            runs[dev] = pipe.fetch_chunk_outputs(
+                pipe.process_chunk(frames[:CMP_CHUNK]), WIDTH, HEIGHT)
+            runs[dev] += [pipe.fetch_outputs(pipe.process_frame(f), WIDTH,
+                                             HEIGHT)
+                          for f in frames[CMP_CHUNK:]]
+        ids_equal, kp_err = True, 0.0
+        for a, b in zip(runs["cpu"], runs["cuda"]):
+            ids_equal &= [t.track_id for t in a] == [t.track_id for t in b]
+            if len(a) == len(b) and a:
+                kp_err = max(kp_err, float(np.abs(
+                    np.stack([t.keypoints for t in a])
+                    - np.stack([t.keypoints for t in b])).max()))
+        out[name] = {"ids_equal": ids_equal, "max_kp_diff_px": kp_err,
+                     "tracks_per_frame": [len(r) for r in runs["cuda"]]}
+        if not ids_equal or kp_err > 1e-2 or not any(runs["cuda"]):
+            raise SystemExit(f"the Re-ID path ({name}) on the card and the "
+                             "CPU disagree")
+    emit("reid_cpu_vs_card", t0, chunk=CMP_CHUNK, frames=4, sources=out)
+
+
 def main():
     faulthandler.dump_traceback_later(LIMIT_S, exit=True)
     t0 = time.perf_counter()
@@ -578,19 +876,26 @@ def main():
          load_s=time.perf_counter() - t, library=os.path.basename(path))
 
     rows = phase_kernels(t0)
+    assets = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "assets")
     params, _ = load_params(os.path.join(
-        os.path.dirname(os.path.abspath(__file__)), "assets",
-        "yolov8n-pose-synthetic640.safetensors"))
+        assets, "yolov8n-pose-synthetic640.safetensors"))
     phase_main_path(t0, params, rows)
     phase_cpu_vs_card(t0, params)
     phase_chunk_path(t0, params, rows)
     phase_chunk_cpu_vs_card(t0, params)
+    sources = reid_sources("cuda", assets)
+    phase_reid_kernels(t0, rows, sources)
+    phase_reid_main_path(t0, params, rows, sources)
+    phase_reid_chunk_path(t0, params, rows, sources)
+    phase_reid_cpu_vs_card(t0, params, sources)
 
-    print(json.dumps({"kernels": [
-        {k: r[k] for k in ("name", "route", "source", "replaces",
-                           "launches", "max_abs_err", "ms", "plain_ms",
-                           "bound_ms", "bound_by", "library_ms")}
-        for r in rows.values()]}), flush=True)
+    keys = ("name", "route", "source", "replaces", "launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "ms_reid", "plain_ms_reid", "bound_ms_reid",
+            "bound_by_reid")
+    print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
+                                  for r in rows.values()]}), flush=True)
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

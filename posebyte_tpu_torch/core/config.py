@@ -38,11 +38,20 @@ class TrackerConfig:
     # Stage-4 torso-OKS fallback tier (gpu_tracker.cu:429).
     torso_tier: bool = True
 
-    # Appearance Re-ID blend; 0 = pure geometric association. Re-ID is not
-    # ported yet, so the port accepts only 0.
+    # Appearance Re-ID blend; 0 = pure geometric association
+    # (ops/reid.py). reid_ema: the per-track embedding's EMA factor.
     reid_weight: float = 0.0
     reid_ema: float = 0.9
+    # The JAX package's choice of sampling lowering ("direct", "block" or
+    # "auto"), kept so that its configs load; the port samples by index
+    # gathers for every value, which give the values of both.
     reid_sample_impl: str = "auto"
+
+    def __post_init__(self):
+        if self.reid_sample_impl not in ("direct", "block", "auto"):
+            raise ValueError(
+                f"reid_sample_impl must be 'direct', 'block' or 'auto', got "
+                f"{self.reid_sample_impl!r}")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,8 +1,9 @@
 // Kernel 3: the tracker recurrence of a whole chunk, K frames, in one launch.
 //
 // Replaces posebyte_tpu/ops/pallas_tracker.py::tracker_chunk_pallas
-// (_tracker_chunk_kernel) for the cv motion model without Re-ID, with the
-// per-frame advance mask and a leading stream axis. Frame by frame it
+// (_tracker_chunk_kernel) for the cv motion model, with or without the
+// appearance Re-ID term, with the per-frame advance mask and a leading
+// stream axis. Frame by frame it
 // computes what tracker/step.py::tracker_step followed by
 // tracker/output.py::extract_outputs_device computes (the plain version,
 // ops/tracker_chunk.py::tracker_chunk_plain):
@@ -11,7 +12,12 @@
 //   each merged so that earlier tiers win and locking what they matched,
 //   6 update matched tracks, 7 age unmatched ones, 8 new tracks in free
 //   slots by prefix-sum ranks in detection order, 9 dominance dedup, then
-//   the per-detection outputs. A frame whose advance flag is 0 computes its
+//   the per-detection outputs. With Re-ID, tiers 1 and 3 blend the
+//   co-visible cosine cost of the track and detection embeddings into
+//   the geometric cost, matched tracks' embeddings follow their detections
+//   by EMA and new tracks take their detection's (ops/reid.py; the cosine
+//   of ops/reid.py::cosine_cost_matrix, 1e-12 inside each square root, not
+//   the TPU kernel's variant). A frame whose advance flag is 0 computes its
 //   outputs as the TPU kernel does (ids -1, scores 0, emit 0, num_active 0;
 //   poses and boxes of the would-be state) and leaves the state as it was.
 //
@@ -24,8 +30,12 @@
 //
 // Design: one block per stream (grid = S) that loops over the K frames with
 // the whole slot pool in shared memory (unpadded [T, 17] keypoint planes;
-// 125 KB at T = 128, D = 64, so the launcher raises the dynamic shared
-// memory limit). Device memory is read once for the initial state and once
+// 126,728 B at T = 128, D = 64, so the launcher raises the dynamic shared
+// memory limit). Re-ID adds the tracks' embeddings as three [T, 17]
+// channel planes and the detections' per-keypoint energies [D, 17]
+// (157,192 B at D = 64, 218,760 B at D = 128); the detections' embeddings
+// themselves are read from device memory through the read-only cache, so
+// that D = 128 stays under the 227 KB a block may have. Device memory is read once for the initial state and once
 // per frame for the detections, and written once per frame for the outputs
 // and once for the final state. A frame that does not advance first saves
 // the state to the output state buffers and restores it afterwards. The
@@ -42,8 +52,10 @@
 //
 // Arithmetic: built with -fmad=false, IEEE expf, sqrtf and division, and
 // keypoints summed in index order, the order of the plain version
-// (ops/oks.py::sum_in_order), so that costs, and with them every integer
-// output, agree bit for bit with the plain version on the card.
+// (ops/oks.py::sum_in_order; a keypoint's energy r, g, b; an embedding's
+// norm over its 51 components k * 3 + c), so that costs, and with them
+// every integer output, agree bit for bit with the plain version on the
+// card.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -67,9 +79,11 @@ struct Ptrs {
   const float* det_scores;    // [S, K, D]
   const uint8_t* det_valid;   // [S, K, D]
   const uint8_t* advance;     // [S, K]
+  const float* det_emb;       // [S, K, D, 51]; null without Re-ID
   // initial state: poses [S,T,17,3], velocities [S,T,17,2], scores [S,T],
   // ids, states, hits, ages, last_frame [S,T] i32, active [S,T] u8,
-  // counters [S,2] i32 (next_id, frame), det_track_slot [S,D] i32
+  // embeddings [S,T,51], counters [S,2] i32 (next_id, frame),
+  // det_track_slot [S,D] i32
   const float* in_poses;
   const float* in_vel;
   const float* in_scores;
@@ -79,6 +93,7 @@ struct Ptrs {
   const int32_t* in_ages;
   const int32_t* in_last_frame;
   const uint8_t* in_active;
+  const float* in_emb;
   const int32_t* in_counters;
   const int32_t* in_slot;
   // final state, same layout
@@ -91,6 +106,7 @@ struct Ptrs {
   int32_t* out_ages;
   int32_t* out_last_frame;
   uint8_t* out_active;
+  float* out_emb;
   int32_t* out_counters;
   int32_t* out_slot;
   // per-frame outputs
@@ -101,18 +117,21 @@ struct Ptrs {
   uint8_t* o_emit;            // [S, K, D]
   int32_t* o_num_active;      // [S, K]
 };
-constexpr int kNumPtrs = 32;
+constexpr int kNumPtrs = 35;
 
 struct Cfg {
   int S, K, T, D;
   int min_hits, max_age, lost_dead_age, num_iters, tent_max_age;
+  int reid;            // 1: Re-ID on
   float gate_thr, lost_gate_thr, vis_thr, dedup_iou, new_thr;
   float gain, alpha, beta, lost_decay, eps0;
   float sig[kNumKp];   // (2 sigma)^2, the full-OKS tiers
   float sigt[4];       // (3 sigma)^2 of the torso keypoints
+  float reid_w, reid_1mw, ema_g, ema_1mg;  // w, 1 - w, gamma, 1 - gamma
 };
-constexpr int kNumIntArgs = 9;
-constexpr int kNumFloatArgs = 10 + kNumKp + 4;
+constexpr int kNumIntArgs = 10;
+constexpr int kNumFloatArgs = 10 + kNumKp + 4 + 4;
+constexpr int kEmb = kNumKp * 3;  // embedding length
 
 // Shared memory, carved from one dynamic buffer.
 struct Smem {
@@ -120,6 +139,8 @@ struct Smem {
   float *px, *py, *pc, *vx, *vy, *qx, *qy;           // [T*17]
   float *tsc, *tcx, *tcy, *tw, *th, *tarea, *tspeed;  // [T]
   float *dx, *dy, *dc;                               // [D*17]
+  float *er, *eg, *eb;                      // [T*17] (Re-ID, else null)
+  float* de;                                // [D*17] (Re-ID, else null)
   float *dsc, *dcx, *dcy, *dw, *dh, *darea, *prices;  // [D]
   float* cost_t;                                     // [D][T]
   int *ids, *st, *hits, *ages, *lf, *row, *row_new, *trank,
@@ -141,7 +162,7 @@ __host__ __device__ inline P* take(uintptr_t base, size_t& off, size_t n) {
 
 // Lays the arrays out from `base`; returns the bytes used.
 __host__ __device__ inline size_t carve(Smem& s, uintptr_t base, int T,
-                                        int D) {
+                                        int D, bool reid) {
   size_t o = 0;
   const size_t TK = (size_t)T * kNumKp, DK = (size_t)D * kNumKp;
   s.col_bid = take<unsigned long long>(base, o, D);
@@ -152,6 +173,9 @@ __host__ __device__ inline size_t carve(Smem& s, uintptr_t base, int T,
   for (float** p : tvec) *p = take<float>(base, o, T);
   float** dplanes[] = {&s.dx, &s.dy, &s.dc};
   for (float** p : dplanes) *p = take<float>(base, o, DK);
+  float** eplanes[] = {&s.er, &s.eg, &s.eb};
+  for (float** p : eplanes) *p = reid ? take<float>(base, o, TK) : nullptr;
+  s.de = reid ? take<float>(base, o, DK) : nullptr;
   float** dvec[] = {&s.dsc, &s.dcx, &s.dcy, &s.dw, &s.dh, &s.darea,
                     &s.prices};
   for (float** p : dvec) *p = take<float>(base, o, D);
@@ -251,6 +275,49 @@ __device__ inline float oks_torso(const Smem& s, const Cfg& cfg, int t,
   return n >= 2 ? sum / static_cast<float>(n) : 0.0f;
 }
 
+// Re-ID appearance cost of track t against detection d
+// (ops/reid.py::cosine_cost_matrix): 1 - cosine over the keypoints whose
+// energy exceeds 1e-12 on both sides, 1.0 with none. `emb` is detection
+// d's embedding in device memory; each sum runs in keypoint order as
+// sum_in_order does, a skipped keypoint adding 0.
+__device__ inline float reid_cost(const Smem& s, const float* emb, int t,
+                                  int d) {
+  float num = 0.0f, tsum = 0.0f, dsum = 0.0f;
+  bool any = false;
+  for (int q = 0; q < kNumKp; ++q) {
+    const int i = t * kNumKp + q;
+    const float r = s.er[i], g = s.eg[i], b = s.eb[i];
+    const float te = (r * r + g * g) + b * b;
+    const float dq = s.de[d * kNumKp + q];
+    const bool vis = te > 1e-12f && dq > 1e-12f;
+    float xn = 0.0f, xt = 0.0f, xd = 0.0f;
+    if (vis) {
+      xn = (r * __ldg(emb + q * 3) + g * __ldg(emb + q * 3 + 1)) +
+           b * __ldg(emb + q * 3 + 2);
+      xt = te;
+      xd = dq;
+      any = true;
+    }
+    if (q == 0) {
+      num = xn;
+      tsum = xt;
+      dsum = xd;
+    } else {
+      num = num + xn;
+      tsum = tsum + xt;
+      dsum = dsum + xd;
+    }
+  }
+  if (!any) return 1.0f;
+  const float tn = sqrtf(tsum + 1e-12f), dn = sqrtf(dsum + 1e-12f);
+  return 1.0f - num / fmaxf(tn * dn, 1e-6f);
+}
+
+// The channel plane of embedding component k = q * 3 + c.
+__device__ inline float* emb_plane(const Smem& s, int c) {
+  return c == 0 ? s.er : (c == 1 ? s.eg : s.eb);
+}
+
 // Copies the slot pool between shared memory and a state in device memory
 // (all threads; the caller synchronises).
 __device__ inline void load_state(Smem& s, const Ptrs& p, const Cfg& cfg,
@@ -280,6 +347,11 @@ __device__ inline void load_state(Smem& s, const Ptrs& p, const Cfg& cfg,
     s.col[d] = (from_out ? p.out_slot : p.in_slot)[(size_t)b * D + d];
   if (tid < 2)
     s.misc[tid] = (from_out ? p.out_counters : p.in_counters)[b * 2 + tid];
+  if (cfg.reid) {
+    const float* emb = (from_out ? p.out_emb : p.in_emb) + bt * kEmb;
+    for (int i = tid; i < T * kEmb; i += blockDim.x)
+      emb_plane(s, i % 3)[i / 3] = emb[i];
+  }
 }
 
 __device__ inline void store_state(const Smem& s, const Ptrs& p,
@@ -308,13 +380,17 @@ __device__ inline void store_state(const Smem& s, const Ptrs& p,
   for (int d = tid; d < D; d += blockDim.x)
     p.out_slot[(size_t)b * D + d] = s.col[d];
   if (tid < 2) p.out_counters[b * 2 + tid] = s.misc[tid];
+  // Without Re-ID the embeddings pass through unchanged.
+  float* emb = p.out_emb + bt * kEmb;
+  for (int i = tid; i < T * kEmb; i += blockDim.x)
+    emb[i] = cfg.reid ? emb_plane(s, i % 3)[i / 3] : p.in_emb[bt * kEmb + i];
 }
 
 __global__ void __launch_bounds__(kThreads)
     tracker_chunk_kernel(Ptrs p, Cfg cfg) {
   extern __shared__ unsigned long long smem[];
   Smem s;
-  carve(s, reinterpret_cast<uintptr_t>(smem), cfg.T, cfg.D);
+  carve(s, reinterpret_cast<uintptr_t>(smem), cfg.T, cfg.D, cfg.reid != 0);
   const int T = cfg.T, D = cfg.D, K = cfg.K, tid = threadIdx.x;
   const int nth = blockDim.x;
   const int b = blockIdx.x;
@@ -340,6 +416,15 @@ __global__ void __launch_bounds__(kThreads)
     for (int d = tid; d < D; d += nth) {
       s.dsc[d] = p.det_scores[f * D + d];
       s.dvalid[d] = p.det_valid[f * D + d] ? 1 : 0;
+    }
+    // the frame's detection embeddings [D, 51] (Re-ID), in device memory
+    const float* femb = cfg.reid ? p.det_emb + f * D * kEmb : nullptr;
+    if (cfg.reid) {
+      for (int i = tid; i < D * kNumKp; i += nth) {
+        const float* e = femb + i * 3;
+        const float r = __ldg(e), g = __ldg(e + 1), b = __ldg(e + 2);
+        s.de[i] = (r * r + g * g) + b * b;
+      }
     }
     for (int t = tid; t < T; t += nth) s.act0[t] = s.active[t];
     for (int i = tid; i < T * kNumKp; i += nth) {
@@ -400,8 +485,14 @@ __global__ void __launch_bounds__(kThreads)
         if (lost && (degen || ratio < thr_l)) g = 2;
       }
       s.gate[t * D + d] = g;
-      s.cost_t[d * T + t] =
-          g == 1 ? 1.0f - oks_full(s, cfg, t, d, cfg.vis_thr) : kLock;
+      float c = kLock;
+      if (g == 1) {
+        c = 1.0f - oks_full(s, cfg, t, d, cfg.vis_thr);
+        if (cfg.reid)
+          c = cfg.reid_1mw * c +
+              cfg.reid_w * reid_cost(s, femb + d * kEmb, t, d);
+      }
+      s.cost_t[d * T + t] = c;
     }
     __syncthreads();
 
@@ -416,8 +507,12 @@ __global__ void __launch_bounds__(kThreads)
         float c = kLock;
         if (!locked && tier == 2 && g == 1)
           c = 1.0f - oks_torso(s, cfg, t, d);
-        else if (!locked && tier == 3 && g == 2)
+        else if (!locked && tier == 3 && g == 2) {
           c = 1.0f - oks_full(s, cfg, t, d, 0.2f);
+          if (cfg.reid)
+            c = cfg.reid_1mw * c +
+                cfg.reid_w * reid_cost(s, femb + d * kEmb, t, d);
+        }
         s.cost_t[d * T + t] = c;
       }
       __syncthreads();
@@ -442,6 +537,25 @@ __global__ void __launch_bounds__(kThreads)
         s.vx[i] = cfg.alpha * ix + cfg.beta * s.vx[i];
         s.vy[i] = cfg.alpha * iy + cfg.beta * s.vy[i];
         s.pc[i] = s.dc[j];
+      }
+    }
+    // Re-ID: EMA of matched tracks' embeddings toward their detections,
+    // renormalised over the 51 components (ops/reid.py::ema_update); the
+    // second pass recomputes the same updated values to scale them.
+    for (int t = tid; cfg.reid && t < T; t += nth) {
+      if (s.row[t] < 0 || !s.act0[t]) continue;
+      const float* e = femb + s.row[t] * kEmb;
+      float n2 = 0.0f;
+      for (int k = 0; k < kEmb; ++k) {
+        const float u = cfg.ema_g * emb_plane(s, k % 3)[t * kNumKp + k / 3] +
+                        cfg.ema_1mg * __ldg(e + k);
+        n2 = k == 0 ? u * u : n2 + u * u;
+      }
+      const float nrm = fmaxf(sqrtf(n2), 1e-6f);
+      for (int k = 0; k < kEmb; ++k) {
+        float* plane = emb_plane(s, k % 3) + t * kNumKp + k / 3;
+        const float u = cfg.ema_g * *plane + cfg.ema_1mg * __ldg(e + k);
+        *plane = u / nrm;
       }
     }
     for (int t = tid; t < T; t += nth) {
@@ -507,6 +621,11 @@ __global__ void __launch_bounds__(kThreads)
         s.pc[j] = s.dc[i];
         s.vx[j] = 0.0f;
         s.vy[j] = 0.0f;
+        if (cfg.reid) {
+          s.er[j] = __ldg(femb + i * 3);
+          s.eg[j] = __ldg(femb + i * 3 + 1);
+          s.eb[j] = __ldg(femb + i * 3 + 2);
+        }
       }
     }
     __syncthreads();
@@ -598,17 +717,20 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace
 
-extern "C" size_t posebyte_tracker_chunk_smem_bytes(int T, int D) {
+extern "C" size_t posebyte_tracker_chunk_smem_bytes(int T, int D,
+                                                    int reid) {
   Smem s;
-  return carve(s, 0, T, D);
+  return carve(s, 0, T, D, reid != 0);
 }
 
-// ptrs: kNumPtrs device pointers in the order of struct Ptrs; iargs: S, K,
-// T, D, min_hits, max_age, lost_dead_age (max_age + lost_window),
-// num_iters, tent_max_age; fargs: gate_thr, lost_gate_thr, vis_thr,
-// dedup_iou, new_thr, gain, alpha, beta (1 - alpha), lost_decay, eps0,
-// then the 17 full-OKS and 4 torso (sigma scale)^2 values. Launches one
-// block per stream on `stream`; returns the launch status.
+// ptrs: kNumPtrs device pointers in the order of struct Ptrs (det_emb
+// null without Re-ID); iargs: S, K, T, D, min_hits, max_age, lost_dead_age
+// (max_age + lost_window), num_iters, tent_max_age, reid (0 or 1); fargs:
+// gate_thr, lost_gate_thr, vis_thr, dedup_iou, new_thr, gain, alpha, beta
+// (1 - alpha), lost_decay, eps0, the 17 full-OKS and 4 torso
+// (sigma scale)^2 values, then reid_weight, 1 - reid_weight, reid_ema and
+// 1 - reid_ema. Launches one block per stream on `stream`; returns the
+// launch status.
 extern "C" cudaError_t posebyte_tracker_chunk(void* const* ptrs,
                                               const int* iargs,
                                               const float* fargs,
@@ -622,9 +744,11 @@ extern "C" cudaError_t posebyte_tracker_chunk(void* const* ptrs,
   for (int i = 0; i < kNumIntArgs; ++i) ci[i] = iargs[i];
   float* cf = &cfg.gate_thr;
   for (int i = 0; i < kNumFloatArgs; ++i) cf[i] = fargs[i];
-  if (cfg.S <= 0 || cfg.K <= 0 || cfg.T <= 0 || cfg.D <= 0)
+  if (cfg.S <= 0 || cfg.K <= 0 || cfg.T <= 0 || cfg.D <= 0 ||
+      (cfg.reid && p.det_emb == nullptr))
     return cudaErrorInvalidValue;
-  const size_t smem = posebyte_tracker_chunk_smem_bytes(cfg.T, cfg.D);
+  const size_t smem =
+      posebyte_tracker_chunk_smem_bytes(cfg.T, cfg.D, cfg.reid);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         tracker_chunk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

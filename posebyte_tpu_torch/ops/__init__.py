@@ -15,6 +15,8 @@ from .nms import (nms_keep, nms_keep_cuda, nms_keep_plain,
 from .oks import oks_matrix, torso_oks_matrix
 from .preprocess import (letterbox_flat_nhwc, letterbox_params,
                          unletterbox_coords)
+from .reid import (REID_DIM, blend_reid_cost, cosine_cost_matrix,
+                   ema_update, make_embed_fn, pose_color_embedding)
 from .tracker_chunk import tracker_chunk_cuda, tracker_chunk_plain
 
 __all__ = [
@@ -23,6 +25,7 @@ __all__ = [
     "masked_pose_bbox", "pose_centers", "cv_predict", "cv_update",
     "nms_keep", "nms_keep_cuda", "nms_keep_plain", "nms_overlap_matrix",
     "pose_nms", "oks_matrix", "torso_oks_matrix", "letterbox_flat_nhwc",
-    "letterbox_params", "unletterbox_coords", "tracker_chunk_cuda",
-    "tracker_chunk_plain",
+    "letterbox_params", "unletterbox_coords", "REID_DIM", "blend_reid_cost",
+    "cosine_cost_matrix", "ema_update", "make_embed_fn",
+    "pose_color_embedding", "tracker_chunk_cuda", "tracker_chunk_plain",
 ]

@@ -41,7 +41,8 @@ _SIGNATURES = {
     "posebyte_auction_smem_bytes": (ctypes.c_size_t, [_c_int, _c_int]),
     "posebyte_tracker_chunk": (_c_int, [_c_void_p, _c_void_p, _c_void_p,
                                         _c_void_p]),
-    "posebyte_tracker_chunk_smem_bytes": (ctypes.c_size_t, [_c_int, _c_int]),
+    "posebyte_tracker_chunk_smem_bytes": (ctypes.c_size_t,
+                                          [_c_int, _c_int, _c_int]),
     "posebyte_error_string": (ctypes.c_char_p, [_c_int]),
 }
 

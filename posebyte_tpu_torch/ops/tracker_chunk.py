@@ -1,7 +1,8 @@
 """The tracker recurrence over a chunk of K frames, after
 posebyte_tpu/ops/pallas_tracker.py::tracker_chunk_pallas.
 
-    tracker_chunk(state, dets, config, advance=None) -> (state', outs)
+    tracker_chunk(state, dets, config, advance=None, det_embeddings=None)
+        -> (state', outs)
 
 dets is a Detections with a leading K axis (poses [K, D, 17, 3], boxes
 [K, D, 4], scores [K, D], valid [K, D]); outs holds per frame ids [K, D]
@@ -13,12 +14,18 @@ the would-be state, as the TPU kernel gives them). A leading stream axis S
 on the state's fields, the detections and advance runs S independent
 streams (the JAX package vmaps the kernel over streams).
 
+det_embeddings ([K, D, 51] float32, or [S, K, D, 51]) are the detections'
+appearance embeddings (ops/reid.py): required when config.reid_weight > 0
+and refused when it is 0, as the TPU kernel asserts. The state's
+embeddings then follow the tracks like every other field.
+
 tracker_chunk_cuda is Kernel 3 (csrc/tracker_chunk.cu), one launch per
-chunk with one block per stream, for the cv motion model without Re-ID;
-tracker_chunk_plain is its plain version, a loop of tracker_step and
-extract_outputs_device with the advance blend of the serving scan. The
-dispatcher tracker_chunk takes the kernel for CUDA tensors and the plain
-version for CPU tensors only.
+chunk with one block per stream, for the cv motion model with or without
+Re-ID and with the torso tier; tracker_chunk_plain is its plain version, a
+loop of tracker_step and extract_outputs_device with the advance blend of
+the serving scan, which also runs torso_tier=False. The dispatcher
+tracker_chunk takes the kernel for CUDA tensors and the plain version for
+CPU tensors only.
 """
 from __future__ import annotations
 
@@ -40,22 +47,27 @@ from .kalman import CV_LOST_DECAY, CV_MEASUREMENT_NOISE, CV_PROCESS_NOISE, \
 from .oks import _sig_sq
 
 OUT_KEYS = ("ids", "scores", "poses", "boxes", "emit", "num_active")
-# State fields the kernel carries, with their dtypes; kf_mean, kf_cov and
-# embeddings pass through unchanged (cv motion, no Re-ID).
+# State fields the kernel carries, with their dtypes (the embeddings pass
+# through unchanged without Re-ID); kf_mean and kf_cov pass through
+# unchanged (cv motion).
 _CARRIED = (("poses", torch.float32), ("velocities", torch.float32),
             ("scores", torch.float32), ("ids", torch.int32),
             ("states", torch.int32), ("hits", torch.int32),
             ("ages", torch.int32), ("last_frame", torch.int32),
-            ("active", torch.bool))
+            ("active", torch.bool), ("embeddings", torch.float32))
 
 
-def _check_options(config: TrackerConfig, what: str) -> None:
-    if config.motion_model != "cv" or config.reid_weight > 0.0:
-        raise NotImplementedError(f"{what}: only the cv motion model "
-                                  "without Re-ID is ported")
-    if not config.torso_tier:
-        raise NotImplementedError(f"{what}: the chunk tracker always runs "
-                                  "the torso tier (torso_tier=True)")
+def _check_options(config: TrackerConfig, det_embeddings, what: str,
+                   kernel: bool) -> None:
+    if config.motion_model != "cv":
+        raise NotImplementedError(f"{what}: only the cv motion model is "
+                                  "ported")
+    if kernel and not config.torso_tier:
+        raise NotImplementedError(f"{what}: the kernel always runs the "
+                                  "torso tier (torso_tier=True)")
+    if (det_embeddings is not None) != (config.reid_weight > 0.0):
+        raise ValueError(f"{what}: det_embeddings must be given exactly "
+                         "when config.reid_weight > 0")
 
 
 def _pick(obj, i):
@@ -71,11 +83,13 @@ def _stack(objs):
 
 
 def _plain_one_stream(state: TrackerState, dets: Detections,
-                      config: TrackerConfig, advance):
+                      config: TrackerConfig, advance, det_embeddings):
     outs = {k: [] for k in OUT_KEYS}
     for k in range(dets.scores.shape[0]):
         det = _pick(dets, k)
-        new, aux = tracker_step(state, det, config)
+        new, aux = tracker_step(
+            state, det, config,
+            None if det_embeddings is None else det_embeddings[k])
         ids, scores, poses, boxes, emit = extract_outputs_device(
             new, det.scores, config)
         num_active = aux["num_active"].to(torch.int32)
@@ -99,15 +113,20 @@ def _plain_one_stream(state: TrackerState, dets: Detections,
 
 def tracker_chunk_plain(state: TrackerState, dets: Detections,
                         config: TrackerConfig = TrackerConfig(),
-                        advance: torch.Tensor | None = None):
+                        advance: torch.Tensor | None = None,
+                        det_embeddings: torch.Tensor | None = None):
     """Plain version of Kernel 3: tracker_step and extract_outputs_device
     frame by frame (on a CUDA tensor its auctions run through Kernel 2)."""
-    _check_options(config, "tracker_chunk_plain")
+    _check_options(config, det_embeddings, "tracker_chunk_plain",
+                   kernel=False)
     if dets.poses.dim() == 4:
-        return _plain_one_stream(state, dets, config, advance)
-    results = [_plain_one_stream(_pick(state, s), _pick(dets, s), config,
-                                 None if advance is None else advance[s])
-               for s in range(dets.poses.shape[0])]
+        return _plain_one_stream(state, dets, config, advance,
+                                 det_embeddings)
+    results = [_plain_one_stream(
+        _pick(state, s), _pick(dets, s), config,
+        None if advance is None else advance[s],
+        None if det_embeddings is None else det_embeddings[s])
+        for s in range(dets.poses.shape[0])]
     return (_stack([r[0] for r in results]),
             {k: torch.stack([r[1][k] for r in results]) for k in OUT_KEYS})
 
@@ -126,25 +145,35 @@ def _float_args(config: TrackerConfig, T: int) -> np.ndarray:
                     1.0 / (T + 1)], np.float64)
         .astype(np.float32),
         _sig_sq(2.0, False, cpu).numpy(), _sig_sq(3.0, True, cpu).numpy(),
+        np.asarray([config.reid_weight, 1.0 - config.reid_weight,
+                    config.reid_ema, 1.0 - config.reid_ema], np.float64)
+        .astype(np.float32),
     ]).astype(np.float32)
+
+
+def smem_bytes(T: int, D: int, reid: bool) -> int:
+    """Shared memory of one Kernel 3 block (the kernel's own layout)."""
+    return cuda_lib.load().posebyte_tracker_chunk_smem_bytes(T, D, int(reid))
 
 
 def tracker_chunk_cuda(state: TrackerState, dets: Detections,
                        config: TrackerConfig = TrackerConfig(),
-                       advance: torch.Tensor | None = None):
+                       advance: torch.Tensor | None = None,
+                       det_embeddings: torch.Tensor | None = None):
     """Kernel 3 on CUDA tensors: one launch for the whole chunk, one block
     per stream. Raises on a CPU tensor, a bad shape or dtype, an option
     that is not ported, or a launch error."""
-    _check_options(config, "tracker_chunk_cuda")
+    _check_options(config, det_embeddings, "tracker_chunk_cuda", kernel=True)
+    reid = det_embeddings is not None
     single = dets.poses.dim() == 4
     if single:
         state, dets = _stack([state]), _stack([dets])
         advance = None if advance is None else advance[None]
+        det_embeddings = None if not reid else det_embeddings[None]
     dev = dets.poses.device
     tensors = [getattr(dets, f.name) for f in dataclasses.fields(dets)] + \
         [getattr(state, f.name) for f in dataclasses.fields(state)]
-    if advance is not None:
-        tensors.append(advance)
+    tensors += [t for t in (advance, det_embeddings) if t is not None]
     if not all(t.is_cuda and t.device == dev for t in tensors):
         raise ValueError("tracker_chunk_cuda: all inputs must be on one "
                          "CUDA device")
@@ -153,23 +182,28 @@ def tracker_chunk_cuda(state: TrackerState, dets: Detections,
                          "3] or [S, K, D, 17, 3]")
     S, K, D = dets.poses.shape[:3]
     T = state.poses.shape[1]
+    E = C.NUM_KEYPOINTS * 3
     shapes = {
         "dets.poses": (dets.poses, (S, K, D, C.NUM_KEYPOINTS, 3)),
         "dets.scores": (dets.scores, (S, K, D)),
         "dets.valid": (dets.valid, (S, K, D)),
         "state.poses": (state.poses, (S, T, C.NUM_KEYPOINTS, 3)),
         "state.velocities": (state.velocities, (S, T, C.NUM_KEYPOINTS, 2)),
+        "state.embeddings": (state.embeddings, (S, T, E)),
         "state.next_id": (state.next_id, (S,)),
         "state.frame": (state.frame, (S,)),
         "state.det_track_slot": (state.det_track_slot, (S, D)),
     }
     shapes.update({f"state.{n}": (getattr(state, n), (S, T))
-                   for n, _ in _CARRIED[2:]})
+                   for n in ("scores", "ids", "states", "hits", "ages",
+                             "last_frame", "active")})
     if (T, D) != (config.max_tracks, config.max_detections):
         raise ValueError(f"tracker_chunk_cuda: T={T}, D={D}, but the config "
                          f"says {config.max_tracks}, {config.max_detections}")
     if advance is not None:
         shapes["advance"] = (advance, (S, K))
+    if reid:
+        shapes["det_embeddings"] = (det_embeddings, (S, K, D, E))
     for name, (t, shape) in shapes.items():
         if tuple(t.shape) != shape:
             raise ValueError(f"tracker_chunk_cuda: {name} has shape "
@@ -181,24 +215,26 @@ def tracker_chunk_cuda(state: TrackerState, dets: Detections,
         [(getattr(state, n), dt) for n, dt in _CARRIED]
     if advance is not None:
         dtypes.append((advance, torch.bool))
+    if reid:
+        dtypes.append((det_embeddings, torch.float32))
     if any(t.dtype != dt for t, dt in dtypes):
-        raise TypeError("tracker_chunk_cuda: float32 poses, velocities and "
-                        "scores, int32 counters and ids, bool valid, active "
-                        "and advance")
-    lib = cuda_lib.load()
-    if min(S, K, T, D) <= 0 or \
-            lib.posebyte_tracker_chunk_smem_bytes(T, D) > _MAX_SMEM:
+        raise TypeError("tracker_chunk_cuda: float32 poses, velocities, "
+                        "scores and embeddings, int32 counters and ids, "
+                        "bool valid, active and advance")
+    if min(S, K, T, D) <= 0 or smem_bytes(T, D, reid) > _MAX_SMEM:
         raise ValueError(f"tracker_chunk_cuda: T={T}, D={D} does not fit "
-                         "one block's shared memory")
+                         "one block's shared memory"
+                         + (" with Re-ID" if reid else ""))
 
     if advance is None:
         advance = torch.ones((S, K), dtype=torch.bool, device=dev)
     counters = torch.stack([state.next_id, state.frame], dim=-1)
-    ins = [dets.poses, dets.scores, dets.valid, advance] + \
-        [getattr(state, n) for n, _ in _CARRIED] + \
-        [counters, state.det_track_slot]
-    ins = [t.contiguous() for t in ins]
-    outs_state = [torch.empty_like(t) for t in ins[4:]]
+    ins_state = [getattr(state, n).contiguous() for n, _ in _CARRIED] + \
+        [counters, state.det_track_slot.contiguous()]
+    ins = [t.contiguous() for t in (dets.poses, dets.scores, dets.valid,
+                                    advance)]
+    ins.append(det_embeddings.contiguous() if reid else None)
+    outs_state = [torch.empty_like(t) for t in ins_state]
     outs = {"ids": torch.empty((S, K, D), dtype=torch.int32, device=dev),
             "scores": torch.empty((S, K, D), dtype=torch.float32,
                                   device=dev),
@@ -209,13 +245,15 @@ def tracker_chunk_cuda(state: TrackerState, dets: Detections,
             "emit": torch.empty((S, K, D), dtype=torch.bool, device=dev),
             "num_active": torch.empty((S, K), dtype=torch.int32,
                                       device=dev)}
-    ptrs = (ctypes.c_void_p * 32)(*(t.data_ptr() for t in
-                                    ins + outs_state + list(outs.values())))
+    table = ins + ins_state + outs_state + list(outs.values())
+    ptrs = (ctypes.c_void_p * len(table))(
+        *(None if t is None else t.data_ptr() for t in table))
     iargs = np.asarray([S, K, T, D, config.min_hits, config.max_age,
                         config.max_age + config.lost_window,
-                        auction_iterations(T), C.TENTATIVE_MAX_AGE],
-                       np.int32)
+                        auction_iterations(T), C.TENTATIVE_MAX_AGE,
+                        int(reid)], np.int32)
     fargs = _float_args(config, T)
+    lib = cuda_lib.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         status = lib.posebyte_tracker_chunk(ptrs, iargs.ctypes.data,
@@ -227,8 +265,7 @@ def tracker_chunk_cuda(state: TrackerState, dets: Detections,
     counters, slot = outs_state[len(_CARRIED):]
     new_state = TrackerState(
         **new, next_id=counters[:, 0], frame=counters[:, 1],
-        det_track_slot=slot, kf_mean=state.kf_mean, kf_cov=state.kf_cov,
-        embeddings=state.embeddings)
+        det_track_slot=slot, kf_mean=state.kf_mean, kf_cov=state.kf_cov)
     if single:
         return _pick(new_state, 0), {k: v[0] for k, v in outs.items()}
     return new_state, outs
@@ -239,12 +276,14 @@ tracker_chunk_cuda.launches = 0
 
 def tracker_chunk(state: TrackerState, dets: Detections,
                   config: TrackerConfig = TrackerConfig(),
-                  advance: torch.Tensor | None = None):
+                  advance: torch.Tensor | None = None,
+                  det_embeddings: torch.Tensor | None = None):
     """K tracker frames: Kernel 3 for CUDA tensors, the plain version for
     CPU tensors."""
     if dets.poses.is_cuda:
-        return tracker_chunk_cuda(state, dets, config, advance)
+        return tracker_chunk_cuda(state, dets, config, advance,
+                                  det_embeddings)
     if dets.poses.device.type != "cpu":
         raise ValueError(f"tracker_chunk: unsupported device "
                          f"{dets.poses.device}")
-    return tracker_chunk_plain(state, dets, config, advance)
+    return tracker_chunk_plain(state, dets, config, advance, det_embeddings)

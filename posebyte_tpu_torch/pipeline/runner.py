@@ -10,6 +10,10 @@ Two paths, as in the JAX package:
   stage_chunk + process_chunk_device. Letterbox (strided selection),
   model, decode and NMS run batched over the K frames (Kernel 1 once, grid
   = K), and the tracker recurrence runs as one Kernel 3 launch.
+With config.tracker.reid_weight > 0 both paths compute an appearance
+embedding per detection from the letterboxed image (ops/reid.py: the
+pose-colour descriptor, or the learned head of models/reid_head.py when
+reid_params are given) and hand it to the tracker.
 Everything from the frames' bytes to the per-detection track outputs runs
 on the pipeline's device; the host copies frames in and, in fetch_outputs
 or fetch_chunk_outputs, the small output tensors out. PyTorch runs
@@ -31,6 +35,7 @@ from ..models.yolo_pose import MODEL_CONFIGS, forward_heads
 from ..ops.decode import decode_topk
 from ..ops.nms import pose_nms
 from ..ops.preprocess import letterbox_flat_nhwc, letterbox_params
+from ..ops.reid import make_embed_fn
 from ..ops.tracker_chunk import tracker_chunk
 from ..tracker.output import TrackOutput, extract_outputs_device
 from ..tracker.step import tracker_step
@@ -42,13 +47,18 @@ class PosePipeline:
     """End-to-end pose tracking on one device.
 
     params: the unfolded checkpoint in the port's layout
-    (models.load_params / models.params_from_jax). device: None runs on the
-    CUDA card and raises when there is none; "cpu" runs the plain versions
-    of the kernels. Constructing it sets the process-wide numeric settings
-    (core.set_numeric_settings: TF32 off, cuDNN autotuning off)."""
+    (models.load_params / models.params_from_jax). reid_params: optional
+    learned Re-ID head weights (models.load_reid_head); with
+    config.tracker.reid_weight > 0 the tracker's appearance embeddings come
+    from that head, else from the pose-colour descriptor. device: None
+    runs on the CUDA card and raises when there is none; "cpu" runs the
+    plain versions of the kernels. Constructing it sets the process-wide
+    numeric settings (core.set_numeric_settings: TF32 off, cuDNN
+    autotuning off)."""
 
     def __init__(self, config: PipelineConfig = PipelineConfig(),
-                 params: dict | None = None, device=None):
+                 params: dict | None = None, device=None,
+                 reid_params: dict | None = None):
         det_cfg, trk_cfg = config.detector, config.tracker
         if params is None:
             raise ValueError("params are required (models.load_params)")
@@ -64,6 +74,13 @@ class PosePipeline:
         self.dtype = _DTYPES[config.precision]
         self.family = MODEL_CONFIGS[config.model_name].family
         self.params = self._device_params(fold_stem_preprocess(params))
+        self.reid_params = None if reid_params is None else {
+            k: torch.as_tensor(np.asarray(v, np.float32)).to(self.device)
+            for k, v in reid_params.items()}
+        self._embed = None
+        if trk_cfg.reid_weight > 0.0:
+            self._embed = make_embed_fn(self.reid_params,
+                                        raw_input=det_cfg.raw_preproc)
         self.state = TrackerState.init(trk_cfg.max_tracks,
                                        trk_cfg.max_detections, self.device)
         self.timing = {"dispatch_ms": 0.0, "frames": 0}
@@ -79,19 +96,25 @@ class PosePipeline:
         return out
 
     def _detect(self, params, frames_flat: torch.Tensor, h: int, w: int,
-                selection: bool) -> Detections:
+                selection: bool):
         """The detector front end over a leading batch axis (the
-        counterpart of detect_fn): flat u8 frames [B, H*W*3] -> compacted,
-        score-descending Detections [B, max_detections]. selection takes
-        the strided-selection letterbox (the chunk path), else the matmul
-        lowering (the per-frame path). The stages carry profiler labels
-        (utils/profiling.py reads them); a label costs a few microseconds
-        of host time when no profiler is active."""
+        counterpart of detect_fn): flat u8 frames [B, H*W*3] -> (compacted,
+        score-descending Detections [B, max_detections], their appearance
+        embeddings [B, max_detections, 51] or None without Re-ID).
+        selection takes the strided-selection letterbox (the chunk path),
+        else the matmul lowering (the per-frame path). The stages carry
+        profiler labels (utils/profiling.py reads them); a label costs a
+        few microseconds of host time when no profiler is active."""
         det_cfg = self.config.detector
+        # With Re-ID the letterbox stays float32: the interpolated raw
+        # letterbox holds fractional values, which the appearance source
+        # samples and a bf16 letterbox would round (the selection lowering
+        # returns exact uint8 either way). The model casts to its dtype.
+        lb_dtype = self.dtype if self._embed is None else torch.float32
         with record_function("letterbox"):
             imgs = letterbox_flat_nhwc(frames_flat, w, h,
                                        det_cfg.input_size,
-                                       out_dtype=self.dtype,
+                                       out_dtype=lb_dtype,
                                        selection=selection)
         with record_function("model"):
             box, cls, kpt = forward_heads(params, imgs.to(self.dtype),
@@ -101,19 +124,25 @@ class PosePipeline:
                               det_cfg.max_candidates, det_cfg.input_size,
                               topk_impl=det_cfg.topk_impl)
         with record_function("nms"):
-            return pose_nms(det, det_cfg.iou_threshold,
-                            det_cfg.oks_threshold, det_cfg.max_detections)
+            det = pose_nms(det, det_cfg.iou_threshold,
+                           det_cfg.oks_threshold, det_cfg.max_detections,
+                           presorted=True)
+        if self._embed is None:
+            return det, None
+        with record_function("reid"):
+            return det, self._embed(imgs, det.poses)
 
     def _step(self, frame_flat: torch.Tensor, h: int, w: int):
         """One frame on the device: _detect on a batch of one, then
         tracker_step and the outputs."""
         trk_cfg = self.config.tracker
-        det = self._detect(self.params, frame_flat[None], h, w,
-                           selection=False)
+        det, emb = self._detect(self.params, frame_flat[None], h, w,
+                                selection=False)
         det = Detections(det.poses[0], det.boxes[0], det.scores[0],
                          det.valid[0])
         with record_function("tracker"):
-            state, aux = tracker_step(self.state, det, trk_cfg)
+            state, aux = tracker_step(self.state, det, trk_cfg,
+                                      None if emb is None else emb[0])
         with record_function("outputs"):
             ids, scores, poses, boxes, emit = extract_outputs_device(
                 state, det.scores, trk_cfg)
@@ -132,9 +161,11 @@ class PosePipeline:
             if tuple(frames_flat.shape) != (k, h * w * 3):
                 raise ValueError(f"chunk_body({k}, {h}, {w}) got frames "
                                  f"{tuple(frames_flat.shape)}")
-            det = self._detect(params, frames_flat, h, w, selection=True)
+            det, emb = self._detect(params, frames_flat, h, w,
+                                    selection=True)
             with record_function("tracker"):
-                return tracker_chunk(state, det, trk_cfg)
+                return tracker_chunk(state, det, trk_cfg,
+                                     det_embeddings=emb)
 
         return body
 

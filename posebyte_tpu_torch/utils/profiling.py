@@ -2,6 +2,7 @@
 
     python -m posebyte_tpu_torch.utils.profiling [--frames 32]
     python -m posebyte_tpu_torch.utils.profiling --chunk 128 [--frames 256]
+    ... [--reid off|descriptor|head]
 
 Runs PosePipeline (yolov8n-pose, 640 input, bf16, raw u8 ingest; the
 trained 640 checkpoint) on synthetic 1280x720 frames: each frame through
@@ -9,12 +10,15 @@ process_frame and fetch_outputs, or with --chunk K each chunk of K frames
 through process_chunk and fetch_chunk_outputs. --warmup frames run first,
 then --frames timed frames with the profiler off, and again with it on;
 with --chunk both count whole chunks (by default one warm-up chunk and two
-timed ones). Prints JSON lines, every number per frame:
+timed ones). --reid runs the tracker with Re-ID (reid_weight 0.3): the
+pose-colour descriptor, or the learned head of
+assets/reid-head-synthetic.safetensors. Prints JSON lines, every number
+per frame:
   steady      host wall ms per frame with the profiler off
   stages      per pipeline stage (the profiler labels of runner.py: ingest,
-              letterbox, model, decode, nms, tracker, outputs, fetch): host
-              ms, and device ms of the kernels launched inside it, per
-              frame, from torch.profiler
+              letterbox, model, decode, nms, reid, tracker, outputs, fetch):
+              host ms, and device ms of the kernels launched inside it,
+              per frame, from torch.profiler
   device      device busy ms per frame (sum of kernel and copy times), device
               operations per frame, and the idle share 1 - busy / wall,
               against the profiled and the unprofiled wall time
@@ -32,8 +36,8 @@ from collections import defaultdict
 
 import numpy as np
 
-STAGES = ("ingest", "letterbox", "model", "decode", "nms", "tracker",
-          "outputs", "fetch")
+STAGES = ("ingest", "letterbox", "model", "decode", "nms", "reid",
+          "tracker", "outputs", "fetch")
 
 
 def _frames(n: int, width: int = 1280, height: int = 720, persons: int = 6,
@@ -58,8 +62,8 @@ def main(argv=None) -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from ..core import PipelineConfig
-    from ..models import load_params
+    from ..core import PipelineConfig, TrackerConfig
+    from ..models import load_params, load_reid_head
     from ..pipeline import PosePipeline
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -69,6 +73,8 @@ def main(argv=None) -> int:
                     help="warm-up frames (default 8, or 1 chunk)")
     ap.add_argument("--chunk", type=int, default=0,
                     help="frames per chunk (0: the per-frame path)")
+    ap.add_argument("--reid", choices=("off", "descriptor", "head"),
+                    default="off", help="appearance Re-ID (reid_weight 0.3)")
     args = ap.parse_args(argv)
     unit = args.chunk or 1
     if args.frames is None:
@@ -84,7 +90,13 @@ def main(argv=None) -> int:
         os.path.abspath(__file__))))
     params, _ = load_params(os.path.join(
         root, "assets", "yolov8n-pose-synthetic640.safetensors"))
-    pipe = PosePipeline(PipelineConfig(), params)
+    cfg, reid_params = PipelineConfig(), None
+    if args.reid != "off":
+        cfg = PipelineConfig(tracker=TrackerConfig(reid_weight=0.3))
+    if args.reid == "head":
+        reid_params = load_reid_head(os.path.join(
+            root, "assets", "reid-head-synthetic.safetensors"))
+    pipe = PosePipeline(cfg, params, reid_params=reid_params)
     W, H = 1280, 720
     frames = _frames(args.warmup + args.frames)
     if args.chunk:                     # stacked before the clock starts
@@ -98,7 +110,8 @@ def main(argv=None) -> int:
     _run(pipe, frames[warm:], W, H, args.chunk)
     wall = (time.perf_counter() - t0) * 1e3 / args.frames
     print(json.dumps({"phase": "steady", "frames": args.frames,
-                      "chunk": args.chunk, "wall_ms_per_frame": wall,
+                      "chunk": args.chunk, "reid": args.reid,
+                      "wall_ms_per_frame": wall,
                       "card": torch.cuda.get_device_name(0)}), flush=True)
 
     pipe.reset()

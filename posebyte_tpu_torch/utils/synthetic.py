@@ -146,6 +146,22 @@ def tracker_chunk_case(seed: int, frames: int, capacity: int,
     return tuple(np.stack(a) for a in out), advance
 
 
+def reid_embeddings_case(seed: int, valid: np.ndarray,
+                         occlusion: float = 0.3) -> np.ndarray:
+    """Appearance embeddings [..., D, 51] float32 for detections with the
+    validity mask `valid` [..., D], in the layout both Re-ID sources give
+    (ops/reid.py): normal keypoint blocks, a share `occlusion` of them zero
+    (keypoints not visible), L2-normalised over the 51 components; zero for
+    invalid detections."""
+    rng = np.random.default_rng(seed)
+    e = rng.normal(size=valid.shape + (C.NUM_KEYPOINTS, 3))
+    e[rng.random(valid.shape + (C.NUM_KEYPOINTS,)) < occlusion] = 0.0
+    e = e.reshape(*valid.shape, C.NUM_KEYPOINTS * 3).astype(np.float32)
+    e /= np.maximum(np.linalg.norm(e, axis=-1, keepdims=True), 1e-6)
+    e[~valid] = 0.0
+    return e.astype(np.float32)
+
+
 def _paint(frame, ys, xs, mask, color):
     frame[ys[mask], xs[mask]] = color
 

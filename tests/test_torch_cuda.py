@@ -8,11 +8,12 @@ conftest:
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 
 Tolerances: none for Kernels 1 and 2 (keep masks and assignments equal);
-Kernel 3 against its plain version on the card: integer outputs and state
-equal, floats within 1e-5 px + 1e-6 relative (the same float32 operations
-in the same order); the per-frame and the chunk pipeline on the card
-against the CPU in fp32 within 1e-2 px with equal track ids (cuDNN and
-oneDNN sum the convolutions in different orders).
+Kernel 3 against its plain version on the card, with and without Re-ID:
+integer outputs and state equal, floats within 1e-5 px + 1e-6 relative
+(the same float32 operations in the same order); the per-frame and the
+chunk pipeline on the card against the CPU in fp32 within 1e-2 px with
+equal track ids (cuDNN and oneDNN sum the convolutions in different
+orders), with and without Re-ID.
 """
 import os
 
@@ -168,24 +169,32 @@ def test_pipeline_card_matches_cpu(card):
             A.auction_assign_cuda.launches - before[1]) == (6, 18)
 
 
-def tracker_chunk_inputs(card, seed, K, T, D, crowd, streams=None):
+def tracker_chunk_inputs(card, seed, K, T, D, crowd, streams=None,
+                         reid=False):
     """Detections, advance mask and a fresh state on the card, from the
-    synthetic tracker case; with `streams`, a leading stream axis."""
+    synthetic tracker case; with `streams`, a leading stream axis; with
+    `reid`, also the detections' embeddings (last)."""
     from posebyte_tpu_torch.core.structs import Detections, TrackerState
     from posebyte_tpu_torch.ops.tracker_chunk import _stack
-    from posebyte_tpu_torch.utils.synthetic import tracker_chunk_case
+    from posebyte_tpu_torch.utils.synthetic import reid_embeddings_case, \
+        tracker_chunk_case
 
     def one(s):
         arrays, adv = tracker_chunk_case(seed + s, K, D, crowd=crowd)
+        emb = reid_embeddings_case(seed + s, arrays[3])
         return (Detections(*(torch.from_numpy(a).to(card) for a in arrays)),
                 torch.from_numpy(adv).to(card),
-                TrackerState.init(T, D, card))
+                TrackerState.init(T, D, card), torch.from_numpy(emb).to(card))
 
     if streams is None:
-        return one(0)
-    cases = [one(s) for s in range(streams)]
-    return (_stack([c[0] for c in cases]),
-            torch.stack([c[1] for c in cases]), _stack([c[2] for c in cases]))
+        case = one(0)
+    else:
+        cases = [one(s) for s in range(streams)]
+        case = (_stack([c[0] for c in cases]),
+                torch.stack([c[1] for c in cases]),
+                _stack([c[2] for c in cases]),
+                torch.stack([c[3] for c in cases]))
+    return case if reid else case[:3]
 
 
 def assert_chunk_equal(got, want):
@@ -226,17 +235,51 @@ def test_tracker_chunk_kernel_matches_plain(card, streams, K, T, D, crowd):
     assert_chunk_equal(got, want)
 
 
+@pytest.mark.parametrize("streams,D", [(None, 64), (3, 64), (None, 128),
+                                       (3, 128)])
+def test_tracker_chunk_kernel_reid_matches_plain(card, streams, D):
+    """Kernel 3 with Re-ID (reid_weight 0.3) at S = 1 and 3, D = 64 and
+    128, holes in the advance mask, crowded frames."""
+    from posebyte_tpu_torch.core.config import TrackerConfig
+    from posebyte_tpu_torch.ops import tracker_chunk as TC
+    K = 64 if D == 64 else 12
+    dets, adv, state, emb = tracker_chunk_inputs(card, 9, K, 128, D,
+                                                 D - 24, streams, reid=True)
+    cfg = TrackerConfig(max_tracks=128, max_detections=D, reid_weight=0.3)
+    before = TC.tracker_chunk_cuda.launches
+    got = TC.tracker_chunk_cuda(state, dets, cfg, adv, emb)
+    assert TC.tracker_chunk_cuda.launches == before + 1
+    want = TC.tracker_chunk_plain(state, dets, cfg, adv, emb)
+    torch.cuda.synchronize()
+    assert_chunk_equal(got, want)
+    assert got[1]["emit"].any()
+    assert (got[0].embeddings.abs().sum(-1) > 0).any()
+
+
 def test_tracker_chunk_kernel_refuses_what_it_does_not_run(card):
     import dataclasses
     from posebyte_tpu_torch.core.config import TrackerConfig
     from posebyte_tpu_torch.ops import tracker_chunk as TC
-    dets, adv, state = tracker_chunk_inputs(card, 1, 4, 128, 64, 0)
+    dets, adv, state, emb = tracker_chunk_inputs(card, 1, 4, 128, 64, 0,
+                                                 reid=True)
     before = TC.tracker_chunk_cuda.launches
     for cfg in (TrackerConfig(motion_model="kalman136"),
-                TrackerConfig(reid_weight=0.5),
                 TrackerConfig(torso_tier=False)):
         with pytest.raises(NotImplementedError):
             TC.tracker_chunk_cuda(state, dets, cfg, adv)
+    # embeddings exactly when reid_weight > 0, of [K, D, 51] float32
+    with pytest.raises(ValueError):
+        TC.tracker_chunk_cuda(state, dets, TrackerConfig(reid_weight=0.5),
+                              adv)
+    with pytest.raises(ValueError):
+        TC.tracker_chunk_cuda(state, dets, TrackerConfig(), adv, emb)
+    reid = TrackerConfig(reid_weight=0.5)
+    with pytest.raises(ValueError):
+        TC.tracker_chunk_cuda(state, dets, reid, adv, emb[:, :32])
+    with pytest.raises(TypeError):
+        TC.tracker_chunk_cuda(state, dets, reid, adv, emb.double())
+    with pytest.raises(ValueError):
+        TC.tracker_chunk_cuda(state, dets, reid, adv, emb.cpu())
     with pytest.raises(ValueError):
         TC.tracker_chunk_cuda(TC._pick(TC._stack([state]), 0),
                               dataclasses.replace(dets, poses=dets.poses
@@ -307,3 +350,57 @@ def test_stream_card_matches_process_frame(card):
         want = b.process_frame(fr)
         for k in ("ids", "emit", "poses", "num_active"):
             assert torch.equal(out[k], want[k]), k
+
+
+@pytest.mark.parametrize("head", [False, True])
+def test_reid_pipeline_card_matches_cpu(card, head):
+    """The Re-ID pipeline (reid_weight 0.3; the descriptor, or the learned
+    head) on the card against the CPU, fp32: a chunk of K = 8 (one Kernel 1
+    and one Kernel 3 launch, no auction launch) and 4 frames of the
+    per-frame path (1 Kernel 1 and 3 Kernel 2 launches each); ids equal,
+    keypoints within 1e-2 px."""
+    from posebyte_tpu_torch.core import (DetectorConfig, PipelineConfig,
+                                         TrackerConfig)
+    from posebyte_tpu_torch.models import load_params, load_reid_head
+    from posebyte_tpu_torch.ops import tracker_chunk as TC
+    from posebyte_tpu_torch.pipeline import PosePipeline
+    from posebyte_tpu_torch.utils.synthetic import SyntheticScene, \
+        render_frame
+
+    assets = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "assets")
+    cfg = PipelineConfig(detector=DetectorConfig(input_size=256,
+                                                 num_anchors=1344),
+                         tracker=TrackerConfig(reid_weight=0.3),
+                         precision="fp32")
+    params = load_params(os.path.join(
+        assets, "yolov8n-pose-synthetic256.safetensors"))[0]
+    reid = load_reid_head(os.path.join(
+        assets, "reid-head-synthetic.safetensors")) if head else None
+    scene = SyntheticScene(4, 1280, 720, seed=11)
+    frames = np.stack([render_frame(scene.step(), 1280, 720)
+                       for _ in range(12)])
+    kernels = (N.nms_keep_cuda, A.auction_assign_cuda, TC.tracker_chunk_cuda)
+
+    def same(cpu, gpu):
+        assert [t.track_id for t in gpu] == [t.track_id for t in cpu]
+        for x, y in zip(gpu, cpu):
+            np.testing.assert_allclose(x.keypoints, y.keypoints, atol=1e-2)
+
+    pipes = [PosePipeline(cfg, params, device=d, reid_params=reid)
+             for d in ("cpu", card)]
+    before = [k.launches for k in kernels]
+    cpu, gpu = (p.fetch_chunk_outputs(p.process_chunk(frames[:8]), 1280,
+                                      720) for p in pipes)
+    assert [k.launches - b for k, b in zip(kernels, before)] == [1, 0, 1]
+    for a, b in zip(cpu, gpu):
+        same(a, b)
+    assert len(gpu[-1]) >= 3
+    before = [k.launches for k in kernels]
+    for fr in frames[8:]:
+        cpu, gpu = (p.fetch_outputs(p.process_frame(fr), 1280, 720)
+                    for p in pipes)
+        same(cpu, gpu)
+    assert [k.launches - b for k, b in zip(kernels, before)] == [4, 12, 0]
+    torch.testing.assert_close(pipes[1].state.embeddings.cpu(),
+                               pipes[0].state.embeddings, rtol=0, atol=1e-3)

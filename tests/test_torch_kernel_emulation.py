@@ -27,7 +27,7 @@ from posebyte_tpu_torch.core.structs import Detections, TrackerState
 from posebyte_tpu_torch.ops import nms as N
 from posebyte_tpu_torch.ops import tracker_chunk as TC
 from posebyte_tpu_torch.utils.synthetic import POSE_OFFSETS, \
-    tracker_chunk_case
+    reid_embeddings_case, tracker_chunk_case
 
 torch.set_num_threads(2)
 
@@ -65,15 +65,18 @@ elif sys.argv[2] == "auction":
         col.ctypes.data, B, R, C, int(d["iters"]), float(d["eps0"]), None)
     np.savez(sys.argv[4], status=st, row=row, col=col)
 else:
-    ins = [d[f"in{i}"] for i in range(15)]
+    # inputs in0..in16 in the pointer table's order; in4 (the detections'
+    # embeddings) is absent without Re-ID and passed as a null pointer
+    ins = [d.get(f"in{i}") for i in range(17)]
     S, K, D = ins[1].shape
-    T = ins[6].shape[1]
-    outs = [np.zeros_like(a) for a in ins[4:]] + [
+    outs = [np.zeros_like(a) for a in ins[5:]] + [
         np.zeros((S, K, D), np.int32), np.zeros((S, K, D), np.float32),
         np.zeros((S, K, D, 17, 3), np.float32),
         np.zeros((S, K, D, 4), np.float32), np.zeros((S, K, D), np.uint8),
         np.zeros((S, K), np.int32)]
-    ptrs = (ctypes.c_void_p * 32)(*(a.ctypes.data for a in ins + outs))
+    table = ins + outs
+    ptrs = (ctypes.c_void_p * len(table))(
+        *(None if a is None else a.ctypes.data for a in table))
     st = fn("posebyte_tracker_chunk")(ptrs, d["iargs"].ctypes.data,
                                       d["fargs"].ctypes.data, None)
     np.savez(sys.argv[4], status=st, **{f"out{i}": a
@@ -204,22 +207,24 @@ def test_auction_kernel_source_matches_plain(emulated, cases):
         np.testing.assert_array_equal(got["col"][b], col.numpy())
 
 
-def tracker_inputs(state, dets, cfg, advance):
+def tracker_inputs(state, dets, cfg, advance, embs=None):
     """The kernel's input arrays (stream axis S = 1), in the order of the
-    wrapper's pointer table (ops/tracker_chunk.py::tracker_chunk_cuda)."""
+    wrapper's pointer table (ops/tracker_chunk.py::tracker_chunk_cuda);
+    without Re-ID the detections' embeddings (in4) are left out."""
     K, D = dets.scores.shape
     T = state.poses.shape[0]
-    arrs = [dets.poses, dets.scores, dets.valid, advance] + \
+    arrs = [dets.poses, dets.scores, dets.valid, advance, embs] + \
         [getattr(state, n) for n, _ in TC._CARRIED] + \
         [torch.stack([state.next_id, state.frame]), state.det_track_slot]
-    arrs = [a.numpy()[None] for a in arrs]
-    arrs = [a.astype(np.uint8) if a.dtype == bool else a for a in arrs]
+    arrs = {f"in{i}": a.numpy()[None] for i, a in enumerate(arrs)
+            if a is not None}
+    arrs = {k: np.ascontiguousarray(a.astype(np.uint8) if a.dtype == bool
+                                    else a) for k, a in arrs.items()}
     iargs = np.asarray([1, K, T, D, cfg.min_hits, cfg.max_age,
                         cfg.max_age + cfg.lost_window,
-                        A.auction_iterations(T), 2], np.int32)
-    return {**{f"in{i}": np.ascontiguousarray(a) for i, a in
-               enumerate(arrs)}, "iargs": iargs,
-            "fargs": TC._float_args(cfg, T)}
+                        A.auction_iterations(T), 2, int(embs is not None)],
+                       np.int32)
+    return {**arrs, "iargs": iargs, "fargs": TC._float_args(cfg, T)}
 
 
 def tracker_case(seed, K, T, D, crowd):
@@ -229,7 +234,7 @@ def tracker_case(seed, K, T, D, crowd):
 
 
 def assert_tracker_equal(got, state, outs):
-    """Kernel outputs (the child process's out0..out16) against the plain
+    """Kernel outputs (the child process's out0..out17) against the plain
     version's state and outputs: integers equal, floats within 1e-4 px
     (the emulation takes expf from the host's libm, the plain version
     from PyTorch's CPU kernels)."""
@@ -266,14 +271,12 @@ def test_tracker_kernel_source_matches_plain(emulated, seed, K, T, D,
         assert int(want_outs["num_active"].max()) == T   # the pool is full
 
 
-def test_tracker_kernel_mutation_is_caught(emulated, tmp_path):
-    """A kernel with a broken rank rule (a detection counts itself) must
-    disagree with the plain version: the comparison above can fail."""
+def _mutant(emulated, tmp_path, old, new):
+    """The emulated library with Kernel 3's source mutated (old -> new)."""
     _, out = emulated
     with open(os.path.join(cuda_lib.CSRC, "tracker_chunk.cu")) as f:
         src = _to_cpp(f.read())
-    bad = src.replace("for (int e = 0; e < d; ++e)",
-                      "for (int e = 0; e <= d; ++e)")
+    bad = src.replace(old, new)
     assert bad != src
     (out / "tracker_mutant.cpp").write_text(bad)
     lib = tmp_path / "libmutant.so"
@@ -283,10 +286,66 @@ def test_tracker_kernel_mutation_is_caught(emulated, tmp_path):
                         str(out / "tracker_mutant.cpp")],
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
+    return str(lib), out
+
+
+def test_tracker_kernel_mutation_is_caught(emulated, tmp_path):
+    """A kernel with a broken rank rule (a detection counts itself) must
+    disagree with the plain version: the comparison above can fail."""
+    mutant = _mutant(emulated, tmp_path, "for (int e = 0; e < d; ++e)",
+                     "for (int e = 0; e <= d; ++e)")
     state, dets, advance = tracker_case(1, 12, 32, 16, 12)
     cfg = TrackerConfig(max_tracks=32, max_detections=16)
     want_state, want_outs = TC.tracker_chunk_plain(state, dets, cfg, advance)
-    got = _launch((str(lib), out), "tracker",
+    got = _launch(mutant, "tracker",
                   **tracker_inputs(state, dets, cfg, advance))
+    with pytest.raises(AssertionError):
+        assert_tracker_equal(got, want_state, want_outs)
+
+
+def reid_case(seed, K, T, D, crowd):
+    state, dets, advance = tracker_case(seed, K, T, D, crowd)
+    embs = torch.from_numpy(reid_embeddings_case(seed, dets.valid.numpy()))
+    return state, dets, advance, embs
+
+
+@pytest.mark.parametrize("seed,K,T,D,crowd", [
+    (1, 12, 32, 16, 12),        # advance holes, crowded frames
+    (0, 12, 16, 16, 12),        # slot exhaustion
+    (1, 5, 128, 64, 40),        # the main path's pool, crowded frames
+])
+def test_tracker_kernel_reid_source_matches_plain(emulated, seed, K, T, D,
+                                                  crowd):
+    """Kernel 3 with Re-ID (reid_weight 0.3, reid_ema 0.9): the cosine
+    blend of tiers 1 and 3, the EMA of matched tracks and the new tracks'
+    embeddings, against the plain version; the final embeddings within
+    1e-4 like every float."""
+    state, dets, advance, embs = reid_case(seed, K, T, D, crowd)
+    cfg = TrackerConfig(max_tracks=T, max_detections=D, reid_weight=0.3)
+    want_state, want_outs = TC.tracker_chunk_plain(state, dets, cfg, advance,
+                                                   embs)
+    got = _launch(emulated, "tracker",
+                  **tracker_inputs(state, dets, cfg, advance, embs))
+    assert_tracker_equal(got, want_state, want_outs)
+    assert not advance.all() and want_outs["emit"].any()
+    assert (want_state.embeddings.abs().sum(1) > 0).sum() >= 4
+
+
+@pytest.mark.parametrize("old,new", [
+    ("*plane = u / nrm;", "*plane = u;"),              # EMA without renorm
+    ("te > 1e-12f && dq > 1e-12f", "te > 1e-12f"),   # not co-visible
+    ("s.er[j] = __ldg(femb + i * 3);", ""),           # new track's red
+])
+def test_tracker_kernel_reid_mutation_is_caught(emulated, tmp_path, old,
+                                                new):
+    """A kernel whose Re-ID arithmetic is broken must disagree with the
+    plain version: the Re-ID comparison above can fail."""
+    mutant = _mutant(emulated, tmp_path, old, new)
+    state, dets, advance, embs = reid_case(1, 12, 32, 16, 12)
+    cfg = TrackerConfig(max_tracks=32, max_detections=16, reid_weight=0.3)
+    want_state, want_outs = TC.tracker_chunk_plain(state, dets, cfg, advance,
+                                                   embs)
+    got = _launch(mutant, "tracker",
+                  **tracker_inputs(state, dets, cfg, advance, embs))
     with pytest.raises(AssertionError):
         assert_tracker_equal(got, want_state, want_outs)

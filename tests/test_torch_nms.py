@@ -138,3 +138,58 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError):
         N.nms_keep_cuda(torch.from_numpy(poses), torch.from_numpy(boxes),
                         torch.from_numpy(valid), 0.55, 0.55)
+
+
+def unsorted_groups(seed, groups=4, per_group=4, invalid=0):
+    """Candidates in random score order: `groups` people, each detected
+    `per_group` times with small jitter (so each group suppresses down to
+    one survivor), and `invalid` invalid entries scattered among them
+    with high scores that must not count."""
+    rng = np.random.default_rng(seed)
+    n = groups * per_group
+    centers = rng.uniform(80, 560, (groups, 2))
+    scales = rng.uniform(60, 120, groups)
+    g = np.repeat(np.arange(groups), per_group)
+    poses = np.zeros((n, 17, 3), np.float32)
+    poses[..., :2] = (centers[g][:, None] + OFFSETS[None]
+                      * scales[g][:, None, None]
+                      + rng.normal(0, 3, (n, 17, 2)))
+    poses[..., 2] = rng.uniform(0.5, 1.0, (n, 17))
+    boxes = np.stack([poses[..., 0].min(1), poses[..., 1].min(1),
+                      poses[..., 0].max(1), poses[..., 1].max(1)],
+                     -1).astype(np.float32)
+    scores = rng.uniform(0.3, 1.0, n).astype(np.float32)
+    valid = np.ones(n, bool)
+    valid[rng.permutation(n)[:invalid]] = False
+    perm = rng.permutation(n)
+    return poses[perm], boxes[perm], scores[perm], valid[perm]
+
+
+# Tolerance: none; the compacted detections are selections of the input.
+@pytest.mark.parametrize("seed,invalid", [(0, 0), (1, 0), (2, 5)])
+def test_pose_nms_sorts_unsorted_input_like_jax(seed, invalid):
+    """Without presorted the port orders the candidates by score, invalid
+    ones last, before the greedy pass, as the JAX default does: 16
+    unsorted candidates in 4 overlapping groups, thresholds 0.55 / 0.55,
+    max_keep 8."""
+    poses, boxes, scores, valid = unsorted_groups(seed, invalid=invalid)
+    assert not np.all(np.diff(scores) <= 0)          # really unsorted
+    jd = j_pose_nms(JDetections(poses=jnp.asarray(poses),
+                                boxes=jnp.asarray(boxes),
+                                scores=jnp.asarray(scores),
+                                valid=jnp.asarray(valid)), 0.55, 0.55, 8)
+    cand = Detections(*(torch.from_numpy(a) for a in
+                        (poses, boxes, scores, valid)))
+    td = N.pose_nms(cand, 0.55, 0.55, 8)
+    for f in ("poses", "boxes", "scores", "valid"):
+        np.testing.assert_array_equal(getattr(td, f).numpy(),
+                                      np.asarray(getattr(jd, f)), err_msg=f)
+    kept = td.scores[td.valid].numpy()
+    assert len(kept) >= 2 and np.all(np.diff(kept) <= 0)
+    # a batch of frames sorts each frame on its own
+    batch = Detections(*(torch.stack([a, a.flip(0)]) for a in
+                         (cand.poses, cand.boxes, cand.scores, cand.valid)))
+    tb = N.pose_nms(batch, 0.55, 0.55, 8)
+    for f in ("poses", "scores", "valid"):
+        for i in range(2):
+            assert torch.equal(getattr(tb, f)[i], getattr(td, f)), f

@@ -1,6 +1,7 @@
 """Plain version of Kernel 3 (posebyte_tpu_torch/ops/tracker_chunk.py::
-tracker_chunk_plain) against the JAX package, on the cv, no-Re-ID cases of
-tests/test_pallas_tracker.py.
+tracker_chunk_plain) against the JAX package, on the cv cases of
+tests/test_pallas_tracker.py, with and without Re-ID, and with the torso
+tier switched off (which only the kernel refuses).
 
 References: the jitted lax.scan of tracker_step + extract_outputs_device
 (with the serving scan's advance blend where a mask is given), and
@@ -15,7 +16,10 @@ tests/test_torch_tracker.py (XLA's CPU compiler fuses poses + K * innov
 into one FMA, PyTorch rounds twice: one float32 ulp). Against the Pallas
 kernel, whose one-hot selections and Python-double constants round
 differently again, poses within 1e-3 px, the bar tests/test_pallas_tracker
-.py holds that kernel to.
+.py holds that kernel to. With Re-ID the state's embeddings within 1e-5
+of JAX's scan; against the Pallas kernel, whose cosine puts no epsilon
+inside its square roots, ids, emit and num_active only, as
+tests/test_pallas_tracker.py compares it with the scan.
 """
 import dataclasses
 
@@ -36,6 +40,7 @@ from posebyte_tpu.utils.synthetic import SyntheticScene, poses_to_detections
 from posebyte_tpu_torch.core.config import TrackerConfig
 from posebyte_tpu_torch.core.structs import Detections, TrackerState
 from posebyte_tpu_torch.ops import tracker_chunk as TC
+from posebyte_tpu_torch.utils.synthetic import reid_embeddings_case
 
 torch.set_num_threads(2)
 
@@ -46,12 +51,12 @@ INT_OUT = ("ids", "emit", "num_active")
 FLOAT_OUT = ("scores", "poses", "boxes")
 
 
-def _jax_scan(state, dets, cfg, advance=None):
+def _jax_scan(state, dets, cfg, advance=None, embs=None):
     """lax.scan of the JAX tracker step; with `advance`, the serving
     scan's blend (tests/test_pallas_tracker.py::_gated_scan_reference)."""
     def one(state, x):
-        det, adv = x
-        new, aux = j_step(state, det, cfg)
+        det, adv, emb = x
+        new, aux = j_step(state, det, cfg, det_embeddings=emb)
         if adv is not None:
             new = jax.tree.map(lambda n, o: jnp.where(adv, n, o), new, state)
         ids, scores, poses, boxes, emit = j_extract(new, det.scores, cfg)
@@ -60,8 +65,8 @@ def _jax_scan(state, dets, cfg, advance=None):
             emit, na = emit & adv, jnp.where(adv, na, 0)
         return new, {"ids": ids, "scores": scores, "poses": poses,
                      "boxes": boxes, "emit": emit, "num_active": na}
-    return jax.jit(lambda s, d, a: jax.lax.scan(one, s, (d, a)))(
-        state, dets, advance)
+    return jax.jit(lambda s, d, a, e: jax.lax.scan(one, s, (d, a, e)))(
+        state, dets, advance, embs)
 
 
 def _stack(dets):
@@ -74,7 +79,7 @@ def _to_torch(obj, cls):
                   for f in dataclasses.fields(cls)})
 
 
-def _check(got, want, advanced=None, pose_atol=1e-5):
+def _check(got, want, advanced=None, pose_atol=1e-5, reid=False):
     """got: the port's (state, outs); want: JAX's. `advanced` limits the
     frame outputs compared to the advanced frames, except emit and
     num_active."""
@@ -82,6 +87,10 @@ def _check(got, want, advanced=None, pose_atol=1e-5):
     for f in INT_STATE:
         np.testing.assert_array_equal(getattr(gs, f).numpy(),
                                       np.asarray(getattr(ws, f)), err_msg=f)
+    if reid:
+        np.testing.assert_allclose(gs.embeddings.numpy(),
+                                   np.asarray(ws.embeddings), rtol=0,
+                                   atol=1e-5, err_msg="embeddings")
     for f in FLOAT_STATE:
         np.testing.assert_allclose(
             getattr(gs, f).numpy(), np.asarray(getattr(ws, f)), rtol=1e-6,
@@ -98,7 +107,7 @@ def _check(got, want, advanced=None, pose_atol=1e-5):
 
 
 def _run(det_list, T=128, D=64, cfg_kw=None, advance=None, pallas=False,
-         state=None):
+         state=None, embs=None):
     cfg_kw = dict(max_tracks=T, max_detections=D, **(cfg_kw or {}))
     jcfg, tcfg = JConfig(**cfg_kw), TrackerConfig(**cfg_kw)
     jdets = _stack(det_list)
@@ -106,11 +115,20 @@ def _run(det_list, T=128, D=64, cfg_kw=None, advance=None, pallas=False,
     tdets = _to_torch(jdets, Detections)
     tstate = _to_torch(jstate, TrackerState)
     tadv = None if advance is None else torch.from_numpy(np.asarray(advance))
-    got = TC.tracker_chunk_plain(tstate, tdets, tcfg, tadv)
+    temb = None if embs is None else torch.from_numpy(embs)
+    got = TC.tracker_chunk_plain(tstate, tdets, tcfg, tadv, temb)
     jadv = None if advance is None else jnp.asarray(advance)
-    want = _jax_scan(jstate, jdets, jcfg, jadv)
-    _check(got, want, advance)
-    if pallas:
+    jemb = None if embs is None else jnp.asarray(embs)
+    want = _jax_scan(jstate, jdets, jcfg, jadv, jemb)
+    _check(got, want, advance, reid=embs is not None)
+    if pallas and embs is not None:
+        want = jax.device_get(tracker_chunk_pallas(
+            jstate, jdets, jcfg, det_embeddings=jemb, advance=jadv,
+            interpret=True))
+        for k in INT_OUT:
+            np.testing.assert_array_equal(got[1][k].numpy(),
+                                          np.asarray(want[1][k]), err_msg=k)
+    elif pallas:
         want = tracker_chunk_pallas(jstate, jdets, jcfg, advance=jadv,
                                     interpret=True)
         _check(got, want, pose_atol=1e-3)
@@ -270,10 +288,81 @@ def test_dispatch_and_refusals():
     assert int(s.frame) == 2 and o["ids"].shape == (2, 8)
     with pytest.raises(ValueError):           # the kernel takes CUDA only
         TC.tracker_chunk_cuda(state, dets, cfg)
-    for bad in (dict(motion_model="kalman136"), dict(reid_weight=0.3),
-                dict(torso_tier=False)):
-        with pytest.raises(NotImplementedError):
-            TC.tracker_chunk(state, dets, dataclasses.replace(cfg, **bad))
-        with pytest.raises(NotImplementedError):
-            TC.tracker_chunk_cuda(state, dets, dataclasses.replace(cfg,
-                                                                   **bad))
+    kalman = dataclasses.replace(cfg, motion_model="kalman136")
+    with pytest.raises(NotImplementedError):
+        TC.tracker_chunk(state, dets, kalman)
+    with pytest.raises(NotImplementedError):
+        TC.tracker_chunk_cuda(state, dets, kalman)
+    # only the kernel refuses torso_tier=False; the plain version runs it
+    no_torso = dataclasses.replace(cfg, torso_tier=False)
+    s, o = TC.tracker_chunk(state, dets, no_torso)
+    assert int(s.frame) == 2
+    with pytest.raises(NotImplementedError):
+        TC.tracker_chunk_cuda(state, dets, no_torso)
+    # embeddings exactly when reid_weight > 0
+    reid = dataclasses.replace(cfg, reid_weight=0.3)
+    embs = torch.zeros(2, 8, 51)
+    for c, e in ((reid, None), (cfg, embs)):
+        with pytest.raises(ValueError):
+            TC.tracker_chunk(state, dets, c, det_embeddings=e)
+        with pytest.raises(ValueError):
+            TC.tracker_chunk_cuda(state, dets, c, det_embeddings=e)
+    s, o = TC.tracker_chunk(state, dets, reid, det_embeddings=embs)
+    assert int(s.frame) == 2
+
+
+def test_torso_tier_off_matches_jax_scan():
+    """torso_tier=False (the evaluation ablation) runs in the plain chunk
+    tracker and equals JAX's scan of tracker_step without the torso tier."""
+    _run(_dropouts(SyntheticScene(6, 960, 540, seed=9), 10, 64, 4),
+         cfg_kw=dict(torso_tier=False))
+
+
+def _reid_dets(seed, frames, D, persons=5):
+    dets = _dropouts(SyntheticScene(persons, 1280, 720, seed=seed), frames,
+                     D, seed, p=0.25)
+    valid = np.stack([np.asarray(d.valid) for d in dets])
+    return dets, reid_embeddings_case(seed, valid)
+
+
+@pytest.mark.parametrize("seed,T,D,cfg_kw", [
+    (17, 128, 64, dict(reid_weight=0.4, reid_ema=0.85)),
+    (3, 32, 16, dict(reid_weight=0.3, min_hits=1, max_age=2,
+                     lost_window=3)),
+])
+def test_reid_matches_jax_scan_and_pallas_ids(seed, T, D, cfg_kw):
+    """Re-ID: the cosine blend of tiers 1 and 3, the EMA and the new
+    tracks' embeddings against JAX's scan; ids, emit and num_active also
+    against the Pallas kernel in interpret mode."""
+    dets, embs = _reid_dets(seed, 8, D)
+    state, outs = _run(dets, T=T, D=D, cfg_kw=cfg_kw, embs=embs,
+                       pallas=True)
+    assert outs["emit"].any() and (state.embeddings.abs().sum(1) > 0).any()
+
+
+def test_reid_advance_holes_and_streams():
+    """Re-ID with holes in the advance mask at S = 1 and S = 3: each
+    stream against JAX's gated scan, and the stacked streams equal the
+    streams run one by one."""
+    cfg_kw = dict(reid_weight=0.3)
+    advs = [np.asarray([True, True, False, True, False, True, True, False]),
+            np.asarray([False, True, True, True, True, False, True, True]),
+            np.ones(8, bool)]
+    per_stream = []
+    for s, adv in enumerate(advs):
+        dets, embs = _reid_dets(30 + s, 8, 64, persons=3 + s)
+        per_stream.append((dets, embs, _run(dets, cfg_kw=cfg_kw, embs=embs,
+                                            advance=adv)))
+    cfg = TrackerConfig(**cfg_kw)
+    stacked = TC.tracker_chunk_plain(
+        TC._stack([TrackerState.init(128, 64)] * 3),
+        TC._stack([_to_torch(_stack(d), Detections)
+                   for d, _, _ in per_stream]), cfg,
+        torch.from_numpy(np.stack(advs)),
+        torch.from_numpy(np.stack([e for _, e, _ in per_stream])))
+    for s, (_, _, (rs, ro)) in enumerate(per_stream):
+        for k in ro:
+            assert torch.equal(stacked[1][k][s], ro[k]), k
+        for f in dataclasses.fields(rs):
+            assert torch.equal(getattr(stacked[0], f.name)[s],
+                               getattr(rs, f.name)), f.name
