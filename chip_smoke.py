@@ -5,7 +5,9 @@
 
 Phases, each printing one JSON line with its elapsed seconds:
   device       the card's name and power limit (nvidia-smi)
-  build        nvcc builds the kernels in csrc/ (or loads the cached build)
+  build        nvcc builds the kernels in csrc/ (or loads the cached build);
+               each kernel's registers and spills as ptxas reports them
+               (Kernel 3 twice: its cv and its kalman136 instantiation)
   kernels      each kernel against its plain PyTorch version on the card, at
                the main path's shapes, on seeded inputs; outputs must be
                equal ("launches" here counts this phase's comparison and
@@ -42,11 +44,27 @@ Phases, each printing one JSON line with its elapsed seconds:
   reid_cpu_vs_card  per source, a chunk of K = 8 and 4 per-frame frames in
                fp32 on the CPU and on the card: track ids equal, keypoints
                within 1e-2 px
+  kalman_kernels  Kernel 3's kalman136 variant against its plain version on
+               the card at S = 1 and 3, D = 64 (K = 128) and D = 128
+               (K = 32), without and with Re-ID (the descriptor's
+               embeddings), holes in the advance mask: integer outputs
+               equal and the float difference, filter included, 0; the
+               stress case (K = 128, T = 128, D = 64, S = 1) timed with cv
+               and kalman136 in turns
+  kalman_main_path  the per-frame path with kalman136 on the card, bf16, 16
+               frames: launches 1 (NMS) and 3 (auction) per frame
+  kalman_chunk_path the chunk path with kalman136 at K = 128, bf16, one
+               warm-up and two timed chunks: launches per chunk exactly
+               nms_keep 1, tracker_chunk 1, auction 0; frames/s
+  kalman_cpu_vs_card  kalman136 in fp32, a chunk of K = 8 and 4 per-frame
+               frames on the CPU and on the card: track ids equal,
+               keypoints within 1e-2 px
 Each path's launch counts are set to 0 just before it runs and read just
 after. Then a line {"kernels": [...]} with each kernel's launches (summed
 over the paths' runs), error, times and bound (the tracker chunk's also
-with Re-ID), and last {"ok": true, "device": {...}}. Any failure raises
-and exits non-zero before that line; a hang is cut by faulthandler.
+with Re-ID and with kalman136, and the variants it was held in), and last
+{"ok": true, "device": {...}}. Any failure raises and exits non-zero
+before that line; a hang is cut by faulthandler.
 """
 import faulthandler
 import functools
@@ -210,22 +228,25 @@ def chunk_diff(got, want):
     return mism, err
 
 
-def tracker_chunk_work(dets, adv, outs, T=128, emb=None):
+def tracker_chunk_work(dets, adv, outs, T=128, emb=None, kalman=False):
     """(bytes, float32 operations) of one chunk on these inputs: each
     input read once (detections, mask, initial state with its embeddings,
-    with Re-ID the detections' embeddings [K, D, 51]), each output written
-    once (frame outputs, final state); per frame, ~30 operations for the
+    with Re-ID the detections' embeddings [K, D, 51], with kalman136 the
+    filter's mean and covariance [T, 136]), each output written once (frame
+    outputs, final state); per frame, ~30 operations for the
     gate of each active-track x valid-detection pair plus ~8 per keypoint
     of the OKS (17) and torso OKS (4) on each such pair, and ~20 per track
     pair of the dedup. With Re-ID also ~15 per keypoint (the two energies,
     the dot product, the three sums) and ~8 more (square roots, division,
     blend) for the cosine of each such pair, ~5 per keypoint for each
     valid detection's energies, and ~6 per component for the EMA of each
-    matched track (at most min(active, valid) of them). The active tracks
-    entering a frame are those of the last advanced frame's output."""
+    matched track (at most min(active, valid) of them). With kalman136 28
+    per (slot, keypoint) for the predict of every slot and ~22 per
+    keypoint of each matched track's update. The active tracks entering a
+    frame are those of the last advanced frame's output."""
     K, D = dets.scores.shape[-2:]
     state_bytes = (T * (51 + 34 + 1 + 51) * 4 + T * 6 * 4 + T + 8
-                   + D * 4)
+                   + D * 4 + (2 * T * 136 * 4 if kalman else 0))
     nbytes = (dets.poses.numel() * 4 + dets.scores.numel() * 4
               + dets.valid.numel() + adv.numel() + 2 * state_bytes
               + sum(v.numel() * v.element_size() for v in outs.values())
@@ -241,6 +262,8 @@ def tracker_chunk_work(dets, adv, outs, T=128, emb=None):
             ops += active * s_nv[k] * pair + 20 * active ** 2
             if emb is not None:
                 ops += 5 * 17 * s_nv[k] + 6 * 51 * min(active, s_nv[k])
+            if kalman:
+                ops += 28 * T * 17 + 22 * 17 * min(active, s_nv[k])
             if s_ad[k]:
                 active = s_na[k]
     return nbytes, ops
@@ -650,7 +673,23 @@ def reid_chunk_case(dev, streams, D=64, seed=SEED):
             torch.from_numpy(np.stack(frames)).to(dev))
 
 
-def phase_reid_kernels(t0, rows, sources):
+def reid_case(cases, sources, streams, D):
+    """reid_chunk_case at (streams, D) on the card and the detections'
+    embeddings from each source ({name: [S, K, D, 51]}), made once and kept
+    in the dict `cases` (the rendered frames are dropped)."""
+    import torch
+    if (streams, D) not in cases:
+        state, dets, adv, frames = reid_chunk_case("cuda", streams, D)
+        embs = {}
+        for name, (embed, _) in sources.items():
+            with torch.no_grad():
+                emb = embed(frames.flatten(0, 1), dets.poses.flatten(0, 1))
+            embs[name] = emb.reshape(*dets.scores.shape, -1).contiguous()
+        cases[streams, D] = (state, dets, adv, embs)
+    return cases[streams, D]
+
+
+def phase_reid_kernels(t0, rows, sources, cases):
     """Kernel 3 with Re-ID against its plain version on the card, S = 1
     and S = 3, D = 64 and D = 128, embeddings of both sources: integer
     outputs equal and float difference 0. Its time with the descriptor's
@@ -662,12 +701,8 @@ def phase_reid_kernels(t0, rows, sources):
     for D in (64, 128):
         cfg = TrackerConfig(max_detections=D, reid_weight=REID_WEIGHT)
         for streams in (1, 3):
-            state, dets, adv, frames = reid_chunk_case("cuda", streams, D)
-            for name, (embed, _) in sources.items():
-                with torch.no_grad():
-                    emb = embed(frames.flatten(0, 1),
-                                dets.poses.flatten(0, 1))
-                emb = emb.reshape(*dets.scores.shape, -1).contiguous()
+            state, dets, adv, embs = reid_case(cases, sources, streams, D)
+            for name, emb in embs.items():
                 got = TC.tracker_chunk_cuda(state, dets, cfg, adv, emb)
                 want = TC.tracker_chunk_plain(state, dets, cfg, adv, emb)
                 torch.cuda.synchronize()
@@ -684,7 +719,6 @@ def phase_reid_kernels(t0, rows, sources):
                 if D == 64 and streams == 1 and name == "descriptor":
                     timed = (TC._pick(state, 0), TC._pick(dets, 0), adv[0],
                              emb[0], got[1], cfg)
-            del frames
     one_state, one_dets, one_adv, one_emb, outs, cfg = timed
     run = (lambda: TC.tracker_chunk_cuda(one_state, one_dets, cfg, one_adv,
                                          one_emb))
@@ -706,6 +740,78 @@ def phase_reid_kernels(t0, rows, sources):
                      for d in (64, 128)},
          shape=f"K={CHUNK},T=128,D=64 and 128,S=1 and 3,"
                f"reid_weight={REID_WEIGHT}; timed at D=64,S=1")
+    rows["tracker_chunk"]["variants"] = ["cv", "reid"]
+
+
+KALMAN_K128 = 32       # frames of the D = 128 kalman136 cases
+
+
+def phase_kalman_kernels(t0, rows, sources, cases):
+    """Kernel 3's kalman136 variant against its plain version on the card:
+    S = 1 and 3, D = 64 (K = CHUNK) and D = 128 (K = KALMAN_K128), without
+    and with Re-ID (the descriptor's embeddings), the advance mask with
+    holes; integer outputs equal and the float difference, the filter
+    included, exactly 0. Then the stress case of the cv row (K = 128,
+    T = 128, D = 64, S = 1) timed with cv and with kalman136 in turns
+    (cv, kalman136, kalman136, cv), the plain version's time and the
+    bound."""
+    from posebyte_tpu_torch.core.config import TrackerConfig
+    from posebyte_tpu_torch.core.structs import Detections
+    from posebyte_tpu_torch.ops import tracker_chunk as TC
+    res = []
+    for D in (64, 128):
+        k = CHUNK if D == 64 else KALMAN_K128
+        for streams in (1, 3):
+            state, dets, adv, embs = reid_case(cases, sources, streams, D)
+            dets = Detections(*(getattr(dets, f)[:, :k] for f in
+                                ("poses", "boxes", "scores", "valid")))
+            for reid in (False, True):
+                cfg = TrackerConfig(max_detections=D,
+                                    motion_model="kalman136",
+                                    reid_weight=REID_WEIGHT if reid else 0.0)
+                emb = embs["descriptor"][:, :k].contiguous() if reid \
+                    else None
+                got = TC.tracker_chunk_cuda(state, dets, cfg, adv[:, :k],
+                                            emb)
+                want = TC.tracker_chunk_plain(state, dets, cfg, adv[:, :k],
+                                              emb)
+                m, e = chunk_diff(got, want)
+                res.append({"streams": streams, "D": D, "K": k,
+                            "reid": reid, "mismatches": m,
+                            "max_abs_err": e,
+                            "emitted": int(got[1]["emit"].sum()),
+                            "holes": int((~adv[:, :k]).sum())})
+                if m or e != 0.0:
+                    raise SystemExit(
+                        f"tracker_chunk with kalman136 (S={streams}, D={D}, "
+                        f"reid={reid}): {m} integer mismatches, float "
+                        f"error {e}")
+    state, dets, adv = chunk_case("cuda", 1)
+    one = (TC._pick(state, 0), TC._pick(dets, 0), adv[0])
+    cv, kalman = TrackerConfig(), TrackerConfig(motion_model="kalman136")
+    ms = {"cv": [], "kalman136": []}
+    for name in ("cv", "kalman136", "kalman136", "cv"):
+        cfg = cv if name == "cv" else kalman
+        ms[name].append(cuda_ms(lambda: TC.tracker_chunk_cuda(
+            *one[:2], cfg, one[2]), 20))
+    outs = TC.tracker_chunk_cuda(*one[:2], kalman, one[2])[1]
+    nbytes, ops = tracker_chunk_work(dets, adv, outs, kalman=True)
+    b_ms, b_by = bound(nbytes, ops)
+    row = rows["tracker_chunk"]
+    row.update(
+        ms_kalman=sum(ms["kalman136"]) / 2,
+        plain_ms_kalman=cuda_ms(lambda: TC.tracker_chunk_plain(
+            *one[:2], kalman, one[2]), 1),
+        bound_ms_kalman=b_ms, bound_by_kalman=b_by,
+        max_abs_err_kalman=max(r["max_abs_err"] for r in res),
+        mismatches_kalman=sum(r["mismatches"] for r in res),
+        variants=row["variants"] + ["kalman136", "kalman136+reid"])
+    emit("kalman_kernels", t0, cases=res, ms_turns=ms,
+         ms=row["ms_kalman"], ms_per_frame=row["ms_kalman"] / CHUNK,
+         plain_ms=row["plain_ms_kalman"], bound_ms=b_ms, bound_by=b_by,
+         bytes=nbytes, ops=ops,
+         shape=f"K={CHUNK} (D=64) and {KALMAN_K128} (D=128),T=128,"
+               f"S=1 and 3, reid off and on; timed at D=64,S=1")
 
 
 def _kernel_counts():
@@ -848,6 +954,138 @@ def phase_reid_cpu_vs_card(t0, params, sources):
     emit("reid_cpu_vs_card", t0, chunk=CMP_CHUNK, frames=4, sources=out)
 
 
+def phase_kalman_main_path(t0, params, rows):
+    """The per-frame path with kalman136: FRAMES frames through
+    process_frame + fetch_outputs; 1 NMS and 3 auction launches per frame,
+    tracks within 10 px of the people."""
+    import numpy as np
+    from posebyte_tpu_torch.core import PipelineConfig, TrackerConfig
+    from posebyte_tpu_torch.pipeline import PosePipeline
+    gts, frames = make_frames(FRAMES)
+    pipe = PosePipeline(PipelineConfig(
+        tracker=TrackerConfig(motion_model="kalman136")), params)
+    kernels = _kernel_counts()
+    for fn in kernels.values():
+        fn.launches = 0
+    ms = []
+    for fr in frames:
+        t = time.perf_counter()
+        res = pipe.fetch_outputs(pipe.process_frame(fr), WIDTH, HEIGHT)
+        ms.append((time.perf_counter() - t) * 1e3)
+        for r in res:
+            if not (np.isfinite(r.keypoints).all()
+                    and np.isfinite(r.bbox).all()):
+                raise SystemExit("non-finite kalman136 track output")
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    errs = track_errors(res, gts[-1])
+    emit("kalman_main_path", t0, frames=FRAMES, launches=launches,
+         ms_per_frame_after_warmup=float(np.mean(ms[4:])),
+         last_frame_kp_err_px=errs)
+    for k, r in rows.items():
+        r["launches"] += launches[k]
+    if launches != {"nms_keep": FRAMES, "auction": 3 * FRAMES,
+                    "tracker_chunk": 0}:
+        raise SystemExit(f"kalman136 per-frame launch counts {launches}, "
+                         f"expected {FRAMES}, {3 * FRAMES} and 0")
+    if max(errs) > 10.0:
+        raise SystemExit(f"kalman136 tracks miss the synthetic people: {errs}")
+
+
+def phase_kalman_chunk_path(t0, params, rows):
+    """The chunk path with kalman136 at K = CHUNK: one warm-up and
+    TIMED_CHUNKS timed chunks; launches per chunk 1 / 0 / 1; frames/s."""
+    import numpy as np
+    import torch
+    from posebyte_tpu_torch.core import PipelineConfig, TrackerConfig
+    from posebyte_tpu_torch.pipeline import PosePipeline
+    pipe = PosePipeline(PipelineConfig(
+        tracker=TrackerConfig(motion_model="kalman136")), params)
+    torch.cuda.reset_peak_memory_stats()
+    kernels = _kernel_counts()
+    for fn in kernels.values():
+        fn.launches = 0
+    ms, per_chunk, errs = [], [], []
+    for frames, gt in make_chunks(1 + TIMED_CHUNKS, CHUNK):
+        before = {k: fn.launches for k, fn in kernels.items()}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = pipe.fetch_chunk_outputs(pipe.process_chunk(frames), WIDTH,
+                                       HEIGHT)
+        ms.append((time.perf_counter() - t) * 1e3)
+        per_chunk.append({k: fn.launches - before[k]
+                          for k, fn in kernels.items()})
+        errs = track_errors(res[-1], gt)
+        for r in res:
+            for tr in r:
+                if not (np.isfinite(tr.keypoints).all()
+                        and np.isfinite(tr.bbox).all()):
+                    raise SystemExit("non-finite kalman136 track output")
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    kf_finite = bool(torch.isfinite(pipe.state.kf_mean).all()
+                     and torch.isfinite(pipe.state.kf_cov).all())
+    timed = ms[1:]
+    emit("kalman_chunk_path", t0, chunk=CHUNK, launches_per_chunk=per_chunk,
+         ms_first_chunk=ms[0], ms_per_chunk=timed,
+         frames_per_s=CHUNK * len(timed) / (sum(timed) / 1e3),
+         last_frame_kp_err_px=errs, filter_finite=kf_finite,
+         peak_mem_mb=torch.cuda.max_memory_allocated() / 2**20)
+    for k, r in rows.items():
+        r["launches"] += launches[k]
+    if any(c != {"nms_keep": 1, "auction": 0, "tracker_chunk": 1}
+           for c in per_chunk):
+        raise SystemExit(f"kalman136 chunk launch counts per chunk "
+                         f"{per_chunk}, expected nms_keep 1, tracker_chunk "
+                         "1, auction 0")
+    if max(errs) > 10.0 or not kf_finite:
+        raise SystemExit(f"kalman136 chunk tracks miss the synthetic people "
+                         f"or the filter is not finite: {errs}")
+
+
+def phase_kalman_cpu_vs_card(t0, params):
+    """kalman136 in fp32: a chunk of CMP_CHUNK frames, then 4 per-frame
+    frames, on the CPU and on the card; ids equal, keypoints within
+    1e-2 px."""
+    import numpy as np
+    from posebyte_tpu_torch.core import PipelineConfig, TrackerConfig
+    from posebyte_tpu_torch.pipeline import PosePipeline
+    frames, _ = next(make_chunks(1, CMP_CHUNK + 4))
+    cfg = PipelineConfig(tracker=TrackerConfig(motion_model="kalman136"),
+                         precision="fp32")
+    runs, kf = {}, {}
+    for dev in ("cpu", "cuda"):
+        pipe = PosePipeline(cfg, params, device=dev)
+        runs[dev] = pipe.fetch_chunk_outputs(
+            pipe.process_chunk(frames[:CMP_CHUNK]), WIDTH, HEIGHT)
+        runs[dev] += [pipe.fetch_outputs(pipe.process_frame(f), WIDTH, HEIGHT)
+                      for f in frames[CMP_CHUNK:]]
+        kf[dev] = pipe.state.kf_mean.cpu().numpy()
+    ids_equal, kp_err = True, 0.0
+    for a, b in zip(runs["cpu"], runs["cuda"]):
+        ids_equal &= [t.track_id for t in a] == [t.track_id for t in b]
+        if len(a) == len(b) and a:
+            kp_err = max(kp_err, float(np.abs(
+                np.stack([t.keypoints for t in a])
+                - np.stack([t.keypoints for t in b])).max()))
+    emit("kalman_cpu_vs_card", t0, chunk=CMP_CHUNK, frames=4,
+         ids_equal=ids_equal, max_kp_diff_px=kp_err,
+         max_kf_mean_diff=float(np.abs(kf["cpu"] - kf["cuda"]).max()),
+         tracks_per_frame=[len(r) for r in runs["cuda"]])
+    if not ids_equal or kp_err > 1e-2 or not any(runs["cuda"]):
+        raise SystemExit("kalman136 on the card and the CPU disagree")
+
+
+def kernel_label(mangled):
+    """A kernel's mangled name -> nms_keep, auction, tracker_chunk<cv> or
+    tracker_chunk<kalman136> (its template argument)."""
+    for base in ("nms_keep", "auction", "tracker_chunk"):
+        if base + "_kernel" in mangled:
+            if base == "tracker_chunk":
+                return base + ("<kalman136>" if "ILb1E" in mangled
+                               else "<cv>")
+            return base
+    return mangled
+
+
 def main():
     faulthandler.dump_traceback_later(LIMIT_S, exit=True)
     t0 = time.perf_counter()
@@ -873,7 +1111,9 @@ def main():
     path, build_s = cuda_lib.build()
     cuda_lib.load()
     emit("build", t0, build_s=build_s, cached=build_s == 0.0,
-         load_s=time.perf_counter() - t, library=os.path.basename(path))
+         load_s=time.perf_counter() - t, library=os.path.basename(path),
+         ptxas={kernel_label(k): v
+                for k, v in cuda_lib.ptxas_usage().items()})
 
     rows = phase_kernels(t0)
     assets = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -885,15 +1125,21 @@ def main():
     phase_chunk_path(t0, params, rows)
     phase_chunk_cpu_vs_card(t0, params)
     sources = reid_sources("cuda", assets)
-    phase_reid_kernels(t0, rows, sources)
+    cases = {}                       # the Re-ID cases of both kernel phases
+    phase_reid_kernels(t0, rows, sources, cases)
     phase_reid_main_path(t0, params, rows, sources)
     phase_reid_chunk_path(t0, params, rows, sources)
     phase_reid_cpu_vs_card(t0, params, sources)
+    phase_kalman_kernels(t0, rows, sources, cases)
+    phase_kalman_main_path(t0, params, rows)
+    phase_kalman_chunk_path(t0, params, rows)
+    phase_kalman_cpu_vs_card(t0, params)
 
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "ms_reid", "plain_ms_reid", "bound_ms_reid",
-            "bound_by_reid")
+            "library_ms", "variants", "ms_reid", "plain_ms_reid",
+            "bound_ms_reid", "bound_by_reid", "ms_kalman", "plain_ms_kalman",
+            "bound_ms_kalman", "bound_by_kalman")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in rows.values()]}), flush=True)
     faulthandler.cancel_dump_traceback_later()

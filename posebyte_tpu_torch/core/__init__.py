@@ -2,8 +2,8 @@
 from . import constants
 from .config import DetectorConfig, PipelineConfig, TrackerConfig
 from .device import resolve_device, set_numeric_settings
-from .structs import Detections, TrackerState
+from .structs import Detections, KalmanState136, TrackerState
 
 __all__ = ["constants", "TrackerConfig", "DetectorConfig", "PipelineConfig",
-           "Detections", "TrackerState", "resolve_device",
+           "Detections", "KalmanState136", "TrackerState", "resolve_device",
            "set_numeric_settings"]

@@ -68,6 +68,12 @@ inline int __syncthreads_or(int pred) {
   g_block_barrier->arrive_and_wait();
   return r;
 }
+struct alignas(16) float4 {
+  float x, y, z, w;
+};
+inline float4 make_float4(float x, float y, float z, float w) {
+  return float4{x, y, z, w};
+}
 template <class T>
 inline T __ldg(const T* p) { return *p; }
 inline unsigned atomicOr(unsigned* p, unsigned v) {

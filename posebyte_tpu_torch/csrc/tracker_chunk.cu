@@ -1,20 +1,24 @@
 // Kernel 3: the tracker recurrence of a whole chunk, K frames, in one launch.
 //
 // Replaces posebyte_tpu/ops/pallas_tracker.py::tracker_chunk_pallas
-// (_tracker_chunk_kernel) for the cv motion model, with or without the
-// appearance Re-ID term, with the per-frame advance mask and a leading
-// stream axis. Frame by frame it
-// computes what tracker/step.py::tracker_step followed by
+// (_tracker_chunk_kernel) for both motion models, cv and kalman136 (a
+// template parameter: two kernels), each with or without the appearance
+// Re-ID term, with the per-frame advance mask and a leading stream axis.
+// Frame by frame it computes what tracker/step.py::tracker_step followed by
 // tracker/output.py::extract_outputs_device computes (the plain version,
 // ops/tracker_chunk.py::tracker_chunk_plain):
-//   1 predict (cv), 2 pose centres and the spatial gates, 3-5 three auction
+//   1 predict (cv; or kalman136: the third-order filter of every slot, free
+//   ones too, the prediction and the gating velocities taken from it),
+//   2 pose centres and the spatial gates, 3-5 three auction
 //   tiers (full OKS on non-lost tracks, torso OKS, lost-track recovery),
 //   each merged so that earlier tiers win and locking what they matched,
-//   6 update matched tracks, 7 age unmatched ones, 8 new tracks in free
-//   slots by prefix-sum ranks in detection order, 9 dominance dedup, then
-//   the per-detection outputs. With Re-ID, tiers 1 and 3 blend the
-//   co-visible cosine cost of the track and detection embeddings into
-//   the geometric cost, matched tracks' embeddings follow their detections
+//   6 update matched tracks (kalman136: the per-keypoint scalar-gain update,
+//   poses from the filter's mean), 7 age unmatched ones, 8 new tracks in
+//   free slots by prefix-sum ranks in detection order (kalman136 initiates
+//   their filters), 9 dominance dedup, then the per-detection outputs.
+//   With Re-ID, tiers 1 and 3 blend the co-visible cosine cost of the
+//   track and detection embeddings into the geometric cost, matched
+//   tracks' embeddings follow their detections
 //   by EMA and new tracks take their detection's (ops/reid.py; the cosine
 //   of ops/reid.py::cosine_cost_matrix, 1e-12 inside each square root, not
 //   the TPU kernel's variant). A frame whose advance flag is 0 computes its
@@ -26,19 +30,34 @@
 // outputs; its arithmetic (OKS over the gated track x detection pairs,
 // the auction rounds) is a few hundred thousand operations; but the frames
 // are sequential and each is ~15 barrier-separated steps plus the auction
-// rounds, on one SM per stream.
+// rounds, on one SM per stream. kalman136 adds the filter's 278,528 B of L2
+// traffic per frame (read and written by predict; device memory sees it
+// once per chunk, 2 x 139,264 B per stream) and 28 operations per
+// (slot, keypoint) for the predict of every slot.
 //
 // Design: one block per stream (grid = S) that loops over the K frames with
 // the whole slot pool in shared memory (unpadded [T, 17] keypoint planes;
-// 126,728 B at T = 128, D = 64, so the launcher raises the dynamic shared
-// memory limit). Re-ID adds the tracks' embeddings as three [T, 17]
-// channel planes and the detections' per-keypoint energies [D, 17]
-// (157,192 B at D = 64, 218,760 B at D = 128); the detections' embeddings
-// themselves are read from device memory through the read-only cache, so
-// that D = 128 stays under the 227 KB a block may have. Device memory is read once for the initial state and once
+// 126,728 B at T = 128, D = 64 and 183,944 B at D = 128, so the launcher
+// raises the dynamic shared memory limit). Re-ID adds the tracks'
+// embeddings as three [T, 17] channel planes and the detections'
+// per-keypoint energies [D, 17] (157,192 B at D = 64, 218,760 B at
+// D = 128); the detections' embeddings themselves are read from device
+// memory through the read-only cache, so that D = 128 stays under the
+// 227 KB a block may have. kalman136 adds no shared memory: its filter,
+// 16 floats per (slot, keypoint), 139,264 B per stream at T = 128, would
+// not fit beside the pool, so the block keeps it in the output buffers
+// kf_mean / kf_cov [S, T, 136] (natural layout t * 136 + k * 8 + c; copied
+// from the input at the start) and reads and writes each (slot, keypoint)'s
+// 8 components as two float4 from the thread that owns it; it stays in L2
+// (predict reads and writes all of it each frame, 278,528 B). The vx / vy
+// planes hold the filter's velocities and qx / qy the prediction. A
+// barrier orders the block's device-memory writes as it orders its shared
+// ones. Device memory is otherwise read once for the initial state and once
 // per frame for the detections, and written once per frame for the outputs
 // and once for the final state. A frame that does not advance first saves
-// the state to the output state buffers and restores it afterwards. The
+// the state to the output state buffers and restores it afterwards; with
+// kalman136 it works on a copy of the filter in the wrapper's scratch buffer
+// [S, 2, T, 136] and leaves the outputs' filter as it was. The
 // TPU kernel's workarounds (identity-mask transposes, one-hot matmul
 // selections, 17 -> 32 lane padding) become indexed reads and writes. OKS
 // is evaluated only on the pairs that a tier's gate admits (elsewhere the
@@ -55,7 +74,11 @@
 // (ops/oks.py::sum_in_order; a keypoint's energy r, g, b; an embedding's
 // norm over its 51 components k * 3 + c), so that costs, and with them
 // every integer output, agree bit for bit with the plain version on the
-// card.
+// card. The filter follows ops/kalman.py::Kalman136 operation by operation:
+// p + v + 0.5 a + (1/6) j left to right with float32(1/6), and the process
+// noise as the float32 squares of 1, 0.5, 0.1, 0.05 (0.1f * 0.1f is
+// 0.010000000707805157, not the Pallas kernel's literal 0.01), both from
+// the launcher's float arguments.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -116,22 +139,34 @@ struct Ptrs {
   float* o_boxes;             // [S, K, D, 4]
   uint8_t* o_emit;            // [S, K, D]
   int32_t* o_num_active;      // [S, K]
+  // kalman136 (null for cv): the filter's mean and covariance diagonal
+  // [S, T, 136], initial and final, and the scratch [S, 2, T, 136] of the
+  // frames that do not advance
+  const float* in_kf_mean;
+  const float* in_kf_cov;
+  float* out_kf_mean;
+  float* out_kf_cov;
+  float* kf_scratch;
 };
-constexpr int kNumPtrs = 35;
+constexpr int kNumPtrs = 40;
 
 struct Cfg {
   int S, K, T, D;
   int min_hits, max_age, lost_dead_age, num_iters, tent_max_age;
   int reid;            // 1: Re-ID on
+  int kalman;          // 1: the kalman136 motion model
   float gate_thr, lost_gate_thr, vis_thr, dedup_iou, new_thr;
   float gain, alpha, beta, lost_decay, eps0;
   float sig[kNumKp];   // (2 sigma)^2, the full-OKS tiers
   float sigt[4];       // (3 sigma)^2 of the torso keypoints
   float reid_w, reid_1mw, ema_g, ema_1mg;  // w, 1 - w, gamma, 1 - gamma
+  float accel_mem, jerk_mem, sixth;  // kalman136: memories, float32(1/6)
+  float noise[4];      // process noise of p, v, a, j: float32 squares
 };
-constexpr int kNumIntArgs = 10;
-constexpr int kNumFloatArgs = 10 + kNumKp + 4 + 4;
+constexpr int kNumIntArgs = 11;
+constexpr int kNumFloatArgs = 10 + kNumKp + 4 + 4 + 3 + 4;
 constexpr int kEmb = kNumKp * 3;  // embedding length
+constexpr int kKf4 = kNumKp * 2;  // float4s of one slot's mean (or cov)
 
 // Shared memory, carved from one dynamic buffer.
 struct Smem {
@@ -386,6 +421,7 @@ __device__ inline void store_state(const Smem& s, const Ptrs& p,
     emb[i] = cfg.reid ? emb_plane(s, i % 3)[i / 3] : p.in_emb[bt * kEmb + i];
 }
 
+template <bool kKalman>
 __global__ void __launch_bounds__(kThreads)
     tracker_chunk_kernel(Ptrs p, Cfg cfg) {
   extern __shared__ unsigned long long smem[];
@@ -396,13 +432,41 @@ __global__ void __launch_bounds__(kThreads)
   const int b = blockIdx.x;
 
   load_state(s, p, cfg, b, false);
+  // kalman136: the stream's filter, [T * 17] (slot, keypoint) entries of two
+  // float4 each (p, v and a, j), worked on in the output buffers
+  float4* kf_m = nullptr;
+  float4* kf_c = nullptr;
+  if constexpr (kKalman) {
+    const size_t o = (size_t)b * T * kKf4;
+    kf_m = reinterpret_cast<float4*>(p.out_kf_mean) + o;
+    kf_c = reinterpret_cast<float4*>(p.out_kf_cov) + o;
+    const float4* im = reinterpret_cast<const float4*>(p.in_kf_mean) + o;
+    const float4* ic = reinterpret_cast<const float4*>(p.in_kf_cov) + o;
+    for (int i = tid; i < T * kKf4; i += nth) {
+      kf_m[i] = im[i];
+      kf_c[i] = ic[i];
+    }
+  }
   __syncthreads();
 
   for (int k = 0; k < K; ++k) {
     const size_t f = (size_t)b * K + k;           // frame index
     const bool adv = p.advance[f] != 0;           // same on every thread
+    float4* fm = kf_m;                            // the frame's filter
+    float4* fc = kf_c;
     if (!adv) {
       store_state(s, p, cfg, b);  // saved; restored after the frame
+      if constexpr (kKalman) {    // work on a copy; the outputs' stays
+        float4* sm = reinterpret_cast<float4*>(p.kf_scratch) +
+                     (size_t)b * 2 * T * kKf4;
+        float4* sc = sm + (size_t)T * kKf4;
+        for (int i = tid; i < T * kKf4; i += nth) {
+          sm[i] = kf_m[i];
+          sc[i] = kf_c[i];
+        }
+        fm = sm;
+        fc = sc;
+      }
       __syncthreads();
     }
 
@@ -427,14 +491,41 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
     for (int t = tid; t < T; t += nth) s.act0[t] = s.active[t];
-    for (int i = tid; i < T * kNumKp; i += nth) {
-      const int t = i / kNumKp;
-      const bool a = s.active[t] != 0;
-      s.qx[i] = a ? s.px[i] + s.vx[i] : s.px[i];
-      s.qy[i] = a ? s.py[i] + s.vy[i] : s.py[i];
-      if (a && s.st[t] == kLost) {
-        s.vx[i] = s.vx[i] * cfg.lost_decay;
-        s.vy[i] = s.vy[i] * cfg.lost_decay;
+    if constexpr (kKalman) {
+      // third-order predict of every slot, free ones too
+      // (Kalman136.predict); the prediction where the track is active
+      for (int i = tid; i < T * kNumKp; i += nth) {
+        const float4 pv = fm[2 * i], aj = fm[2 * i + 1];
+        const float4 cpv = fc[2 * i], caj = fc[2 * i + 1];
+        const float4 npv = make_float4(
+            ((pv.x + pv.z) + 0.5f * aj.x) + cfg.sixth * aj.z,
+            ((pv.y + pv.w) + 0.5f * aj.y) + cfg.sixth * aj.w,
+            (pv.z + aj.x) + 0.5f * aj.z, (pv.w + aj.y) + 0.5f * aj.w);
+        fm[2 * i] = npv;
+        fm[2 * i + 1] =
+            make_float4(aj.x * cfg.accel_mem, aj.y * cfg.accel_mem,
+                        aj.z * cfg.jerk_mem, aj.w * cfg.jerk_mem);
+        fc[2 * i] = make_float4(cpv.x + cfg.noise[0], cpv.y + cfg.noise[0],
+                                cpv.z + cfg.noise[1], cpv.w + cfg.noise[1]);
+        fc[2 * i + 1] =
+            make_float4(caj.x + cfg.noise[2], caj.y + cfg.noise[2],
+                        caj.z + cfg.noise[3], caj.w + cfg.noise[3]);
+        const bool a = s.active[i / kNumKp] != 0;
+        s.vx[i] = npv.z;
+        s.vy[i] = npv.w;
+        s.qx[i] = a ? npv.x : s.px[i];
+        s.qy[i] = a ? npv.y : s.py[i];
+      }
+    } else {
+      for (int i = tid; i < T * kNumKp; i += nth) {
+        const int t = i / kNumKp;
+        const bool a = s.active[t] != 0;
+        s.qx[i] = a ? s.px[i] + s.vx[i] : s.px[i];
+        s.qy[i] = a ? s.py[i] + s.vy[i] : s.py[i];
+        if (a && s.st[t] == kLost) {
+          s.vx[i] = s.vx[i] * cfg.lost_decay;
+          s.vy[i] = s.vy[i] * cfg.lost_decay;
+        }
       }
     }
     if (tid == 0) s.misc[1] = s.misc[1] + 1;      // frame
@@ -531,11 +622,38 @@ __global__ void __launch_bounds__(kThreads)
       const int t = i / kNumKp;
       if (s.row[t] >= 0 && s.act0[t]) {
         const int j = s.row[t] * kNumKp + (i - t * kNumKp);
-        const float ix = s.dx[j] - s.px[i], iy = s.dy[j] - s.py[i];
-        s.px[i] = s.px[i] + cfg.gain * ix;
-        s.py[i] = s.py[i] + cfg.gain * iy;
-        s.vx[i] = cfg.alpha * ix + cfg.beta * s.vx[i];
-        s.vy[i] = cfg.alpha * iy + cfg.beta * s.vy[i];
+        if constexpr (kKalman) {
+          // per-keypoint scalar gain (Kalman136.update): R = 5 / (conf +
+          // 0.1), keypoints under 0.1 keep their state, both velocities
+          // take the x gain; the pose is the filter's position
+          float4 pv = fm[2 * i], cpv = fc[2 * i];
+          const float c = s.dc[j];
+          const bool use = c >= 0.1f;
+          const float R = 5.0f / (c + 0.1f);
+          const float Kx = cpv.x / (cpv.x + R), Ky = cpv.y / (cpv.y + R);
+          const float Kv = 0.5f * Kx;
+          const float ix = s.dx[j] - pv.x, iy = s.dy[j] - pv.y;
+          pv.x = pv.x + (use ? Kx * ix : 0.0f);
+          pv.y = pv.y + (use ? Ky * iy : 0.0f);
+          pv.z = pv.z + (use ? Kv * ix : 0.0f);
+          pv.w = pv.w + (use ? Kv * iy : 0.0f);
+          if (use) {
+            cpv.x = (1.0f - Kx) * cpv.x;
+            cpv.y = (1.0f - Ky) * cpv.y;
+          }
+          fm[2 * i] = pv;
+          fc[2 * i] = cpv;
+          s.px[i] = pv.x;
+          s.py[i] = pv.y;
+          s.vx[i] = pv.z;
+          s.vy[i] = pv.w;
+        } else {
+          const float ix = s.dx[j] - s.px[i], iy = s.dy[j] - s.py[i];
+          s.px[i] = s.px[i] + cfg.gain * ix;
+          s.py[i] = s.py[i] + cfg.gain * iy;
+          s.vx[i] = cfg.alpha * ix + cfg.beta * s.vx[i];
+          s.vy[i] = cfg.alpha * iy + cfg.beta * s.vy[i];
+        }
         s.pc[i] = s.dc[j];
       }
     }
@@ -625,6 +743,15 @@ __global__ void __launch_bounds__(kThreads)
           s.er[j] = __ldg(femb + i * 3);
           s.eg[j] = __ldg(femb + i * 3 + 1);
           s.eb[j] = __ldg(femb + i * 3 + 2);
+        }
+        if constexpr (kKalman) {
+          // Kalman136.initiate: the detection's position, zero derivatives;
+          // position variance 10 (1000 where conf <= 0), the rest 100
+          const float pv = s.dc[i] > 0.0f ? 10.0f : 1000.0f;
+          fm[2 * j] = make_float4(s.dx[i], s.dy[i], 0.0f, 0.0f);
+          fm[2 * j + 1] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          fc[2 * j] = make_float4(pv, pv, 100.0f, 100.0f);
+          fc[2 * j + 1] = make_float4(100.0f, 100.0f, 100.0f, 100.0f);
         }
       }
     }
@@ -724,13 +851,15 @@ extern "C" size_t posebyte_tracker_chunk_smem_bytes(int T, int D,
 }
 
 // ptrs: kNumPtrs device pointers in the order of struct Ptrs (det_emb
-// null without Re-ID); iargs: S, K, T, D, min_hits, max_age, lost_dead_age
-// (max_age + lost_window), num_iters, tent_max_age, reid (0 or 1); fargs:
+// null without Re-ID, the five filter pointers null for cv); iargs: S, K,
+// T, D, min_hits, max_age, lost_dead_age (max_age + lost_window),
+// num_iters, tent_max_age, reid (0 or 1), kalman (0 or 1); fargs:
 // gate_thr, lost_gate_thr, vis_thr, dedup_iou, new_thr, gain, alpha, beta
 // (1 - alpha), lost_decay, eps0, the 17 full-OKS and 4 torso
-// (sigma scale)^2 values, then reid_weight, 1 - reid_weight, reid_ema and
-// 1 - reid_ema. Launches one block per stream on `stream`; returns the
-// launch status.
+// (sigma scale)^2 values, reid_weight, 1 - reid_weight, reid_ema,
+// 1 - reid_ema, then accel_memory, jerk_memory, float32(1/6) and the four
+// process noises (p, v, a, j). Launches one block per stream on `stream`
+// with the cv or the kalman136 kernel; returns the launch status.
 extern "C" cudaError_t posebyte_tracker_chunk(void* const* ptrs,
                                               const int* iargs,
                                               const float* fargs,
@@ -745,17 +874,20 @@ extern "C" cudaError_t posebyte_tracker_chunk(void* const* ptrs,
   float* cf = &cfg.gate_thr;
   for (int i = 0; i < kNumFloatArgs; ++i) cf[i] = fargs[i];
   if (cfg.S <= 0 || cfg.K <= 0 || cfg.T <= 0 || cfg.D <= 0 ||
-      (cfg.reid && p.det_emb == nullptr))
+      (cfg.reid && p.det_emb == nullptr) ||
+      (cfg.kalman && (!p.in_kf_mean || !p.in_kf_cov || !p.out_kf_mean ||
+                      !p.out_kf_cov || !p.kf_scratch)))
     return cudaErrorInvalidValue;
   const size_t smem =
       posebyte_tracker_chunk_smem_bytes(cfg.T, cfg.D, cfg.reid);
+  void (*kernel)(Ptrs, Cfg) = cfg.kalman ? tracker_chunk_kernel<true>
+                                         : tracker_chunk_kernel<false>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        tracker_chunk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  tracker_chunk_kernel<<<cfg.S, kThreads, smem,
-                         static_cast<cudaStream_t>(stream)>>>(p, cfg);
+  kernel<<<cfg.S, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p,
+                                                                        cfg);
   return cudaGetLastError();
 }

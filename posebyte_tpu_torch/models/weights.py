@@ -1,5 +1,6 @@
-"""Weight loading for the port: a numpy-only safetensors reader, the JAX
-parameter layout turned into PyTorch's, and the raw-ingest stem fold.
+"""Weight loading for the port: a numpy-only safetensors reader and writer,
+the JAX parameter layout turned into PyTorch's, and the raw-ingest stem
+fold.
 
 Parameters are a flat dict {key: np.ndarray} whose keys are the flattened
 pytree paths the JAX package writes (posebyte_tpu/models/weights.py:274-328):
@@ -51,6 +52,33 @@ def read_safetensors(path: str):
                              f"its shape {shape}")
         out[name] = arr.reshape(shape).copy()
     return out, meta
+
+
+def write_safetensors(path: str, tensors: dict, metadata: dict | None = None):
+    """Write {name: np.ndarray} (and str -> str metadata) as a safetensors
+    file that read_safetensors and the safetensors package both read: the
+    header (its JSON padded with spaces to a multiple of 8 bytes), then
+    each tensor's little-endian bytes in the dict's order, contiguous."""
+    names = {np.dtype(v): k for k, v in _ST_DTYPES.items()}
+    header, blobs, offset = {}, [], 0
+    if metadata:
+        header["__metadata__"] = {str(k): str(v) for k, v in metadata.items()}
+    for name, arr in tensors.items():
+        arr = np.asarray(arr, order="C")          # keeps 0-d arrays
+        if arr.dtype not in names:
+            raise ValueError(f"{name!r}: unsupported dtype {arr.dtype}")
+        data = arr.astype(arr.dtype.newbyteorder("<"), copy=False).tobytes()
+        header[name] = {"dtype": names[arr.dtype], "shape": list(arr.shape),
+                        "data_offsets": [offset, offset + len(data)]}
+        blobs.append(data)
+        offset += len(data)
+    head = json.dumps(header, separators=(",", ":")).encode("utf-8")
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for data in blobs:
+            f.write(data)
 
 
 def _to_torch_layout(flat: dict) -> dict:

@@ -13,7 +13,9 @@ the fixed round budget gives.
 
 auction_assign_cuda is Kernel 2 (csrc/auction.cu) on CUDA tensors;
 auction_assign is its plain version. The tracker picks one by device
-(tracker/step.py::_auction).
+(tracker/step.py::_auction). greedy_assign and filter_matches_by_threshold
+are the reference's host-side matcher family (assignment.py:112-166 of the
+JAX package); no path of the pipeline calls them.
 """
 from __future__ import annotations
 
@@ -129,3 +131,42 @@ def auction_assign_cuda(cost: torch.Tensor,
 
 
 auction_assign_cuda.launches = 0
+
+
+def filter_matches_by_threshold(cost: torch.Tensor, row_assign: torch.Tensor,
+                                col_assign: torch.Tensor, threshold: float):
+    """Drop the matches whose cost exceeds `threshold`, in both directions
+    (reference: the host solver's post-filter, hungarian.cu:324-336)."""
+    C = cost.shape[1]
+    safe_col = row_assign.clamp(0, C - 1).long()
+    match_cost = cost.gather(1, safe_col[:, None])[:, 0]
+    bad = (row_assign >= 0) & (match_cost > threshold)
+    bad_cols = torch.zeros((C,), dtype=torch.int32, device=cost.device) \
+        .scatter_reduce(0, safe_col, bad.to(torch.int32), "amax") > 0
+    return (torch.where(bad, -1, row_assign),
+            torch.where(bad_cols, -1, col_assign))
+
+
+def greedy_assign(cost: torch.Tensor, threshold: float = 1e9,
+                  max_matches: int | None = None):
+    """Globally ordered greedy assignment: take the cheapest remaining
+    (row, column) pair under `threshold` (the first in row-major order on
+    ties), up to max_matches (default min(R, C)) times (reference:
+    kernelGreedyMatch and the sorted CPU fallback, hungarian.cu:126-157,
+    454-518) -> (row_assign [R], col_assign [C]) int32, -1 unmatched."""
+    R, C = cost.shape
+    if max_matches is None:
+        max_matches = min(R, C)
+    i32 = dict(dtype=torch.int32, device=cost.device)
+    row = torch.full((R,), -1, **i32)
+    col = torch.full((C,), -1, **i32)
+    cur = cost.to(torch.float32).clone()
+    for _ in range(max_matches):
+        idx = int(cur.reshape(-1).argmin())
+        r, c = divmod(idx, C)
+        if not bool(cur[r, c] < threshold):
+            break            # nothing under the threshold is left
+        row[r], col[c] = c, r
+        cur[r, :] = float("inf")
+        cur[:, c] = float("inf")
+    return row, col

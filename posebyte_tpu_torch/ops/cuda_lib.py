@@ -5,8 +5,9 @@ interface, loaded with ctypes; no PyTorch header is compiled. The library
 is cached in build/cuda/ at the repository root under a hash of the sources
 and flags, so the first use on a machine builds it and later uses load it.
 A build writes to a temporary file and renames it into place, so processes
-building at once never load a half-written library. Nothing here runs at
-import time.
+building at once never load a half-written library; nvcc's report of each
+kernel's registers and spills (-Xptxas -v) is kept beside the library
+(ptxas_usage reads it). Nothing here runs at import time.
 
 Environment: CUDA_HOME (default /usr/local/cuda) locates nvcc, else the
 PATH does; POSEBYTE_CUDA_BUILD_DIR overrides the build directory.
@@ -16,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -26,7 +28,8 @@ CSRC = os.path.join(_PKG, "csrc")
 SOURCES = ("nms_keep.cu", "auction.cu", "tracker_chunk.cu")
 HEADERS = ("auction.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 _c_void_p, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -91,11 +94,46 @@ def build() -> tuple[str, float]:
         if r.returncode != 0:
             raise RuntimeError(f"nvcc failed ({r.returncode}):\n"
                                f"{' '.join(cmd)}\n{r.stdout}\n{r.stderr}")
+        with open(_log_path(path), "w") as f:
+            f.write(r.stdout + r.stderr)
         os.replace(tmp, path)
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
     return path, time.perf_counter() - t0
+
+
+def _log_path(path: str) -> str:
+    return path[:-len(".so")] + ".ptxas.txt"
+
+
+def ptxas_usage() -> dict:
+    """{kernel's mangled name: {"registers", "stack", "spill_stores",
+    "spill_loads"}} from the -Xptxas -v report of the current library's
+    build (built first if needed)."""
+    path, _ = build()
+    with open(_log_path(path)) as f:
+        log = f.read()
+    usage, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\w+)", line)
+        if m:
+            name = m.group(1)
+            usage.setdefault(name, {})
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name:
+            usage[name].update(stack=int(m.group(1)),
+                               spill_stores=int(m.group(2)),
+                               spill_loads=int(m.group(3)))
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            usage.setdefault(name, {})
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            usage[name]["registers"] = int(m.group(1))
+    return usage
 
 
 def load():

@@ -32,6 +32,14 @@ def pose_centers(poses: torch.Tensor, conf_thresh: float = 0.1):
     return torch.where(valid[..., None], centers, 0.0)
 
 
+def pose_area(poses: torch.Tensor, conf_thresh: float = 0.1):
+    """Area of the box of the keypoints above conf_thresh, 0 with fewer
+    than 2 of them (reference: PoseDetection::getPoseArea, types.h:74-91)."""
+    bbox, valid = masked_pose_bbox(poses, conf_thresh)
+    area = (bbox[..., 2] - bbox[..., 0]) * (bbox[..., 3] - bbox[..., 1])
+    return torch.where(valid, area, 0.0)
+
+
 def boxes_iou_matrix(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Pairwise IoU of xyxy boxes: a [M, 4] x b [N, 4] -> [M, N]."""
     ax1, ay1, ax2, ay2 = (a[:, None, i] for i in range(4))

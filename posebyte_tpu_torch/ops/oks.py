@@ -89,3 +89,23 @@ def torso_oks_matrix(track_poses: torch.Tensor, det_poses: torch.Tensor,
     count = vis.sum(dim=-1)
     total = sum_in_order(torch.where(vis, oks_kp, 0.0))
     return torch.where(count >= min_count, total / count.clamp_min(1), 0.0)
+
+
+def oks_distance_matrix(track_poses: torch.Tensor, det_poses: torch.Tensor,
+                        sigma_scale: float = 2.0) -> torch.Tensor:
+    """OKS cost 1 - OKS [T, D] with the legacy low-confidence retry
+    (reference: kernelOKSDistance, oks_distance.cu:78-163): pairs with
+    fewer than 3 keypoints above 0.2 on both sides take the OKS over the
+    keypoints above 0.05."""
+    strict = oks_matrix(track_poses, det_poses, 0.2, sigma_scale)
+    relaxed = oks_matrix(track_poses, det_poses, 0.05, sigma_scale)
+    strict_count = ((track_poses[:, None, :, 2] > 0.2)
+                    & (det_poses[None, :, :, 2] > 0.2)).sum(dim=-1)
+    return 1.0 - torch.where(strict_count >= 3, strict, relaxed)
+
+
+def combine_costs(oks_cost: torch.Tensor, iou_cost: torch.Tensor,
+                  alpha: float = 0.7) -> torch.Tensor:
+    """alpha * OKS cost + (1 - alpha) * IoU cost (reference:
+    kernelCombineCosts, oks_distance.cu:248-261)."""
+    return alpha * oks_cost + (1.0 - alpha) * iou_cost

@@ -19,9 +19,13 @@ appearance embeddings (ops/reid.py): required when config.reid_weight > 0
 and refused when it is 0, as the TPU kernel asserts. The state's
 embeddings then follow the tracks like every other field.
 
+With config.motion_model "kalman136" the state's kf_mean and kf_cov
+[T, 136] (the third-order filter, ops/kalman.py::Kalman136) follow the
+tracks like every other field; with "cv" they pass through unchanged.
+
 tracker_chunk_cuda is Kernel 3 (csrc/tracker_chunk.cu), one launch per
-chunk with one block per stream, for the cv motion model with or without
-Re-ID and with the torso tier; tracker_chunk_plain is its plain version, a
+chunk with one block per stream, for either motion model, with or without
+Re-ID, with the torso tier; tracker_chunk_plain is its plain version, a
 loop of tracker_step and extract_outputs_device with the advance blend of
 the serving scan, which also runs torso_tier=False. The dispatcher
 tracker_chunk takes the kernel for CUDA tensors and the plain version for
@@ -43,13 +47,14 @@ from ..tracker.step import tracker_step
 from . import cuda_lib
 from .assignment import _MAX_SMEM, auction_iterations
 from .kalman import CV_LOST_DECAY, CV_MEASUREMENT_NOISE, CV_PROCESS_NOISE, \
-    CV_VELOCITY_ALPHA
+    CV_VELOCITY_ALPHA, _PROCESS_NOISE_DIAG
 from .oks import _sig_sq
 
 OUT_KEYS = ("ids", "scores", "poses", "boxes", "emit", "num_active")
-# State fields the kernel carries, with their dtypes (the embeddings pass
-# through unchanged without Re-ID); kf_mean and kf_cov pass through
-# unchanged (cv motion).
+# State fields the kernel carries in its table of state pointers, with
+# their dtypes (the embeddings pass through unchanged without Re-ID).
+# kf_mean and kf_cov have pointers of their own at the end of the table,
+# null for cv, whose wrapper hands the input's filter through.
 _CARRIED = (("poses", torch.float32), ("velocities", torch.float32),
             ("scores", torch.float32), ("ids", torch.int32),
             ("states", torch.int32), ("hits", torch.int32),
@@ -59,9 +64,6 @@ _CARRIED = (("poses", torch.float32), ("velocities", torch.float32),
 
 def _check_options(config: TrackerConfig, det_embeddings, what: str,
                    kernel: bool) -> None:
-    if config.motion_model != "cv":
-        raise NotImplementedError(f"{what}: only the cv motion model is "
-                                  "ported")
     if kernel and not config.torso_tier:
         raise NotImplementedError(f"{what}: the kernel always runs the "
                                   "torso tier (torso_tier=True)")
@@ -146,8 +148,10 @@ def _float_args(config: TrackerConfig, T: int) -> np.ndarray:
         .astype(np.float32),
         _sig_sq(2.0, False, cpu).numpy(), _sig_sq(3.0, True, cpu).numpy(),
         np.asarray([config.reid_weight, 1.0 - config.reid_weight,
-                    config.reid_ema, 1.0 - config.reid_ema], np.float64)
-        .astype(np.float32),
+                    config.reid_ema, 1.0 - config.reid_ema,
+                    config.accel_memory, config.jerk_memory, 1.0 / 6.0],
+                   np.float64).astype(np.float32),
+        _PROCESS_NOISE_DIAG[:8:2],          # p, v, a, j: float32 squares
     ]).astype(np.float32)
 
 
@@ -165,6 +169,7 @@ def tracker_chunk_cuda(state: TrackerState, dets: Detections,
     that is not ported, or a launch error."""
     _check_options(config, det_embeddings, "tracker_chunk_cuda", kernel=True)
     reid = det_embeddings is not None
+    kalman = config.motion_model == "kalman136"
     single = dets.poses.dim() == 4
     if single:
         state, dets = _stack([state]), _stack([dets])
@@ -193,6 +198,8 @@ def tracker_chunk_cuda(state: TrackerState, dets: Detections,
         "state.next_id": (state.next_id, (S,)),
         "state.frame": (state.frame, (S,)),
         "state.det_track_slot": (state.det_track_slot, (S, D)),
+        "state.kf_mean": (state.kf_mean, (S, T, C.TOTAL_STATE_DIM)),
+        "state.kf_cov": (state.kf_cov, (S, T, C.TOTAL_STATE_DIM)),
     }
     shapes.update({f"state.{n}": (getattr(state, n), (S, T))
                    for n in ("scores", "ids", "states", "hits", "ages",
@@ -211,7 +218,9 @@ def tracker_chunk_cuda(state: TrackerState, dets: Detections,
     dtypes = [(dets.poses, torch.float32), (dets.scores, torch.float32),
               (dets.valid, torch.bool), (state.next_id, torch.int32),
               (state.frame, torch.int32),
-              (state.det_track_slot, torch.int32)] + \
+              (state.det_track_slot, torch.int32),
+              (state.kf_mean, torch.float32),
+              (state.kf_cov, torch.float32)] + \
         [(getattr(state, n), dt) for n, dt in _CARRIED]
     if advance is not None:
         dtypes.append((advance, torch.bool))
@@ -219,8 +228,8 @@ def tracker_chunk_cuda(state: TrackerState, dets: Detections,
         dtypes.append((det_embeddings, torch.float32))
     if any(t.dtype != dt for t, dt in dtypes):
         raise TypeError("tracker_chunk_cuda: float32 poses, velocities, "
-                        "scores and embeddings, int32 counters and ids, "
-                        "bool valid, active and advance")
+                        "scores, embeddings and filter, int32 counters and "
+                        "ids, bool valid, active and advance")
     if min(S, K, T, D) <= 0 or smem_bytes(T, D, reid) > _MAX_SMEM:
         raise ValueError(f"tracker_chunk_cuda: T={T}, D={D} does not fit "
                          "one block's shared memory"
@@ -245,13 +254,20 @@ def tracker_chunk_cuda(state: TrackerState, dets: Detections,
             "emit": torch.empty((S, K, D), dtype=torch.bool, device=dev),
             "num_active": torch.empty((S, K), dtype=torch.int32,
                                       device=dev)}
-    table = ins + ins_state + outs_state + list(outs.values())
+    # kalman136: the filter in and out, and the scratch copy of the frames
+    # that do not advance (the kernel allocates nothing)
+    kf = [None] * 5
+    if kalman:
+        kf_in = [state.kf_mean.contiguous(), state.kf_cov.contiguous()]
+        kf = kf_in + [torch.empty_like(t) for t in kf_in] + [torch.empty(
+            (S, 2, T, C.TOTAL_STATE_DIM), dtype=torch.float32, device=dev)]
+    table = ins + ins_state + outs_state + list(outs.values()) + kf
     ptrs = (ctypes.c_void_p * len(table))(
         *(None if t is None else t.data_ptr() for t in table))
     iargs = np.asarray([S, K, T, D, config.min_hits, config.max_age,
                         config.max_age + config.lost_window,
                         auction_iterations(T), C.TENTATIVE_MAX_AGE,
-                        int(reid)], np.int32)
+                        int(reid), int(kalman)], np.int32)
     fargs = _float_args(config, T)
     lib = cuda_lib.load()
     with torch.cuda.device(dev):
@@ -263,9 +279,10 @@ def tracker_chunk_cuda(state: TrackerState, dets: Detections,
 
     new = dict(zip((n for n, _ in _CARRIED), outs_state[:len(_CARRIED)]))
     counters, slot = outs_state[len(_CARRIED):]
+    kf_mean, kf_cov = kf[2:4] if kalman else (state.kf_mean, state.kf_cov)
     new_state = TrackerState(
         **new, next_id=counters[:, 0], frame=counters[:, 1],
-        det_track_slot=slot, kf_mean=state.kf_mean, kf_cov=state.kf_cov)
+        det_track_slot=slot, kf_mean=kf_mean, kf_cov=kf_cov)
     if single:
         return _pick(new_state, 0), {k: v[0] for k, v in outs.items()}
     return new_state, outs

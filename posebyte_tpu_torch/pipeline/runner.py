@@ -10,6 +10,8 @@ Two paths, as in the JAX package:
   stage_chunk + process_chunk_device. Letterbox (strided selection),
   model, decode and NMS run batched over the K frames (Kernel 1 once, grid
   = K), and the tracker recurrence runs as one Kernel 3 launch.
+Both paths run either motion model (config.tracker.motion_model: "cv", or
+"kalman136", whose filter travels in the state's kf_mean and kf_cov).
 With config.tracker.reid_weight > 0 both paths compute an appearance
 embedding per detection from the letterboxed image (ops/reid.py: the
 pose-colour descriptor, or the learned head of models/reid_head.py when

@@ -1,1 +1,2 @@
-"""Host-side utilities (numpy only)."""
+"""Host-side utilities: the synthetic scene, tracker-state checkpoints and
+the profiling entry point."""

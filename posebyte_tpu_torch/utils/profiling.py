@@ -2,7 +2,7 @@
 
     python -m posebyte_tpu_torch.utils.profiling [--frames 32]
     python -m posebyte_tpu_torch.utils.profiling --chunk 128 [--frames 256]
-    ... [--reid off|descriptor|head]
+    ... [--reid off|descriptor|head] [--motion cv|kalman136]
 
 Runs PosePipeline (yolov8n-pose, 640 input, bf16, raw u8 ingest; the
 trained 640 checkpoint) on synthetic 1280x720 frames: each frame through
@@ -12,8 +12,9 @@ then --frames timed frames with the profiler off, and again with it on;
 with --chunk both count whole chunks (by default one warm-up chunk and two
 timed ones). --reid runs the tracker with Re-ID (reid_weight 0.3): the
 pose-colour descriptor, or the learned head of
-assets/reid-head-synthetic.safetensors. Prints JSON lines, every number
-per frame:
+assets/reid-head-synthetic.safetensors. --motion picks the tracker's motion
+model (the cv filter, or the third-order kalman136). Prints JSON lines,
+every number per frame:
   steady      host wall ms per frame with the profiler off
   stages      per pipeline stage (the profiler labels of runner.py: ingest,
               letterbox, model, decode, nms, reid, tracker, outputs, fetch):
@@ -75,6 +76,8 @@ def main(argv=None) -> int:
                     help="frames per chunk (0: the per-frame path)")
     ap.add_argument("--reid", choices=("off", "descriptor", "head"),
                     default="off", help="appearance Re-ID (reid_weight 0.3)")
+    ap.add_argument("--motion", choices=("cv", "kalman136"), default="cv",
+                    help="the tracker's motion model")
     args = ap.parse_args(argv)
     unit = args.chunk or 1
     if args.frames is None:
@@ -90,9 +93,10 @@ def main(argv=None) -> int:
         os.path.abspath(__file__))))
     params, _ = load_params(os.path.join(
         root, "assets", "yolov8n-pose-synthetic640.safetensors"))
-    cfg, reid_params = PipelineConfig(), None
-    if args.reid != "off":
-        cfg = PipelineConfig(tracker=TrackerConfig(reid_weight=0.3))
+    cfg = PipelineConfig(tracker=TrackerConfig(
+        motion_model=args.motion,
+        reid_weight=0.0 if args.reid == "off" else 0.3))
+    reid_params = None
     if args.reid == "head":
         reid_params = load_reid_head(os.path.join(
             root, "assets", "reid-head-synthetic.safetensors"))
@@ -111,6 +115,7 @@ def main(argv=None) -> int:
     wall = (time.perf_counter() - t0) * 1e3 / args.frames
     print(json.dumps({"phase": "steady", "frames": args.frames,
                       "chunk": args.chunk, "reid": args.reid,
+                      "motion": args.motion,
                       "wall_ms_per_frame": wall,
                       "card": torch.cuda.get_device_name(0)}), flush=True)
 

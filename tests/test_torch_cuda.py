@@ -10,10 +10,11 @@ conftest:
 Tolerances: none for Kernels 1 and 2 (keep masks and assignments equal);
 Kernel 3 against its plain version on the card, with and without Re-ID:
 integer outputs and state equal, floats within 1e-5 px + 1e-6 relative
-(the same float32 operations in the same order); the per-frame and the
-chunk pipeline on the card against the CPU in fp32 within 1e-2 px with
-equal track ids (cuDNN and oneDNN sum the convolutions in different
-orders), with and without Re-ID.
+(the same float32 operations in the same order), and with kalman136 every
+float equal too; the per-frame and the chunk pipeline on the card against
+the CPU in fp32 within 1e-2 px with equal track ids (cuDNN and oneDNN sum
+the convolutions in different orders), with and without Re-ID, with either
+motion model.
 """
 import os
 
@@ -262,11 +263,17 @@ def test_tracker_chunk_kernel_refuses_what_it_does_not_run(card):
     from posebyte_tpu_torch.ops import tracker_chunk as TC
     dets, adv, state, emb = tracker_chunk_inputs(card, 1, 4, 128, 64, 0,
                                                  reid=True)
+    # kalman136 runs (one launch), and carries the filter out
     before = TC.tracker_chunk_cuda.launches
-    for cfg in (TrackerConfig(motion_model="kalman136"),
-                TrackerConfig(torso_tier=False)):
-        with pytest.raises(NotImplementedError):
-            TC.tracker_chunk_cuda(state, dets, cfg, adv)
+    new, _ = TC.tracker_chunk_cuda(state, dets,
+                                   TrackerConfig(motion_model="kalman136"),
+                                   adv)
+    assert TC.tracker_chunk_cuda.launches == before + 1
+    assert not torch.equal(new.kf_cov, state.kf_cov)
+    before = TC.tracker_chunk_cuda.launches
+    with pytest.raises(NotImplementedError):
+        TC.tracker_chunk_cuda(state, dets, TrackerConfig(torso_tier=False),
+                              adv)
     # embeddings exactly when reid_weight > 0, of [K, D, 51] float32
     with pytest.raises(ValueError):
         TC.tracker_chunk_cuda(state, dets, TrackerConfig(reid_weight=0.5),
@@ -290,6 +297,48 @@ def test_tracker_chunk_kernel_refuses_what_it_does_not_run(card):
     with pytest.raises(ValueError):
         TC.tracker_chunk_cuda(state, dets, TrackerConfig(max_tracks=64))
     assert TC.tracker_chunk_cuda.launches == before
+
+
+def assert_chunk_identical(got, want):
+    """Every field and output equal, floats bit for bit."""
+    import dataclasses
+    (gs, go), (ws, wo) = got, want
+    pairs = [(f.name, getattr(gs, f.name), getattr(ws, f.name))
+             for f in dataclasses.fields(gs)] + \
+        [(k, go[k], wo[k]) for k in wo]
+    for name, g, w in pairs:
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        assert torch.equal(g, w), name
+
+
+@pytest.mark.parametrize("streams,D,reid", [
+    (None, 64, False), (3, 64, False), (None, 64, True), (3, 128, True),
+    (None, 128, False)])
+def test_tracker_chunk_kernel_kalman_matches_plain(card, streams, D, reid):
+    """Kernel 3's kalman136 variant at S = 1 and 3, D = 64 and 128, with
+    and without Re-ID, holes in the advance mask, crowded frames, from a
+    pool whose filter is drawn at random: everything equal to the plain
+    version, the filter included."""
+    from posebyte_tpu_torch.core.config import TrackerConfig
+    from posebyte_tpu_torch.ops import tracker_chunk as TC
+    K = 64 if D == 64 else 12
+    case = tracker_chunk_inputs(card, 13, K, 128, D, D - 24, streams,
+                                reid=True)
+    dets, adv, state, emb = case[:3] + (case[3] if reid else None,)
+    g = torch.Generator(device="cpu").manual_seed(D)
+    shape = state.kf_mean.shape
+    state.kf_mean = (torch.randn(shape, generator=g) * 40).to(card)
+    state.kf_cov = (torch.rand(shape, generator=g) * 0.1 + 0.001).to(card)
+    cfg = TrackerConfig(max_tracks=128, max_detections=D,
+                        motion_model="kalman136",
+                        reid_weight=0.3 if reid else 0.0)
+    before = TC.tracker_chunk_cuda.launches
+    got = TC.tracker_chunk_cuda(state, dets, cfg, adv, emb)
+    assert TC.tracker_chunk_cuda.launches == before + 1
+    want = TC.tracker_chunk_plain(state, dets, cfg, adv, emb)
+    torch.cuda.synchronize()
+    assert_chunk_identical(got, want)
+    assert got[1]["emit"].any() and not adv.all()
 
 
 def test_chunk_pipeline_card_matches_cpu(card):
@@ -404,3 +453,57 @@ def test_reid_pipeline_card_matches_cpu(card, head):
     assert [k.launches - b for k, b in zip(kernels, before)] == [4, 12, 0]
     torch.testing.assert_close(pipes[1].state.embeddings.cpu(),
                                pipes[0].state.embeddings, rtol=0, atol=1e-3)
+
+
+@pytest.mark.parametrize("reid", [False, True])
+def test_kalman_pipeline_card_matches_cpu(card, reid):
+    """The kalman136 pipeline (with and without Re-ID, the descriptor) on
+    the card against the CPU, fp32: a chunk of K = 8 (one Kernel 1 and one
+    Kernel 3 launch, no auction launch) and 4 frames of the per-frame path
+    (1 Kernel 1 and 3 Kernel 2 launches each); ids equal, keypoints within
+    1e-2 px, the filter within 1e-2."""
+    from posebyte_tpu_torch.core import (DetectorConfig, PipelineConfig,
+                                         TrackerConfig)
+    from posebyte_tpu_torch.models import load_params
+    from posebyte_tpu_torch.ops import tracker_chunk as TC
+    from posebyte_tpu_torch.pipeline import PosePipeline
+    from posebyte_tpu_torch.utils.synthetic import SyntheticScene, \
+        render_frame
+
+    assets = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "assets")
+    cfg = PipelineConfig(
+        detector=DetectorConfig(input_size=256, num_anchors=1344),
+        tracker=TrackerConfig(motion_model="kalman136",
+                              reid_weight=0.3 if reid else 0.0),
+        precision="fp32")
+    params = load_params(os.path.join(
+        assets, "yolov8n-pose-synthetic256.safetensors"))[0]
+    scene = SyntheticScene(4, 1280, 720, seed=17)
+    frames = np.stack([render_frame(scene.step(), 1280, 720)
+                       for _ in range(12)])
+    kernels = (N.nms_keep_cuda, A.auction_assign_cuda, TC.tracker_chunk_cuda)
+    pipes = [PosePipeline(cfg, params, device=d) for d in ("cpu", card)]
+
+    def same(cpu, gpu):
+        assert [t.track_id for t in gpu] == [t.track_id for t in cpu]
+        for x, y in zip(gpu, cpu):
+            np.testing.assert_allclose(x.keypoints, y.keypoints, atol=1e-2)
+
+    before = [k.launches for k in kernels]
+    cpu, gpu = (p.fetch_chunk_outputs(p.process_chunk(frames[:8]), 1280,
+                                      720) for p in pipes)
+    assert [k.launches - b for k, b in zip(kernels, before)] == [1, 0, 1]
+    for a, b in zip(cpu, gpu):
+        same(a, b)
+    assert len(gpu[-1]) >= 3
+    before = [k.launches for k in kernels]
+    for fr in frames[8:]:
+        cpu, gpu = (p.fetch_outputs(p.process_frame(fr), 1280, 720)
+                    for p in pipes)
+        same(cpu, gpu)
+    assert [k.launches - b for k, b in zip(kernels, before)] == [4, 12, 0]
+    for f in ("kf_mean", "kf_cov"):
+        torch.testing.assert_close(getattr(pipes[1].state, f).cpu(),
+                                   getattr(pipes[0].state, f), rtol=0,
+                                   atol=1e-2)

@@ -7,9 +7,12 @@ barriers and uniform loop exits, tie rules -- on a host without a card.
 Each emulated launch runs in a child process with a time limit, so a
 barrier that not every thread reaches fails the test instead of hanging
 it. Tolerance: none for keep masks, assignments and the tracker's
-integers; tracker floats within 1e-4 px (see assert_tracker_equal). Needs g++ with
-C++20; the card itself is tested in tests/test_torch_cuda.py.
+integers; tracker floats within 1e-4 px (see assert_tracker_equal), except
+the kalman136 filter's mean and covariance, which must be equal (their
+arithmetic holds no expf). Needs g++ with C++20; the card itself is tested
+in tests/test_torch_cuda.py.
 """
+import dataclasses
 import os
 import re
 import shutil
@@ -66,7 +69,9 @@ elif sys.argv[2] == "auction":
     np.savez(sys.argv[4], status=st, row=row, col=col)
 else:
     # inputs in0..in16 in the pointer table's order; in4 (the detections'
-    # embeddings) is absent without Re-ID and passed as a null pointer
+    # embeddings) is absent without Re-ID and passed as a null pointer;
+    # with kalman136 the filter (kf_mean, kf_cov) and NaN-filled outputs
+    # and scratch end the table, else five null pointers
     ins = [d.get(f"in{i}") for i in range(17)]
     S, K, D = ins[1].shape
     outs = [np.zeros_like(a) for a in ins[5:]] + [
@@ -74,7 +79,13 @@ else:
         np.zeros((S, K, D, 17, 3), np.float32),
         np.zeros((S, K, D, 4), np.float32), np.zeros((S, K, D), np.uint8),
         np.zeros((S, K), np.int32)]
-    table = ins + outs
+    kf = [None] * 5
+    if "kf_mean" in d:
+        m = d["kf_mean"]
+        kf = [m, d["kf_cov"], np.full_like(m, np.nan), np.full_like(m, np.nan),
+              np.full((S, 2) + m.shape[1:], np.nan, np.float32)]
+        outs += kf[2:4]
+    table = ins + outs[:18] + kf
     ptrs = (ctypes.c_void_p * len(table))(
         *(None if a is None else a.ctypes.data for a in table))
     st = fn("posebyte_tracker_chunk")(ptrs, d["iargs"].ctypes.data,
@@ -210,7 +221,9 @@ def test_auction_kernel_source_matches_plain(emulated, cases):
 def tracker_inputs(state, dets, cfg, advance, embs=None):
     """The kernel's input arrays (stream axis S = 1), in the order of the
     wrapper's pointer table (ops/tracker_chunk.py::tracker_chunk_cuda);
-    without Re-ID the detections' embeddings (in4) are left out."""
+    without Re-ID the detections' embeddings (in4) are left out; with
+    kalman136 the state's filter is added (kf_mean, kf_cov)."""
+    kalman = cfg.motion_model == "kalman136"
     K, D = dets.scores.shape
     T = state.poses.shape[0]
     arrs = [dets.poses, dets.scores, dets.valid, advance, embs] + \
@@ -222,8 +235,11 @@ def tracker_inputs(state, dets, cfg, advance, embs=None):
                                     else a) for k, a in arrs.items()}
     iargs = np.asarray([1, K, T, D, cfg.min_hits, cfg.max_age,
                         cfg.max_age + cfg.lost_window,
-                        A.auction_iterations(T), 2, int(embs is not None)],
-                       np.int32)
+                        A.auction_iterations(T), 2, int(embs is not None),
+                        int(kalman)], np.int32)
+    if kalman:
+        arrs.update(kf_mean=state.kf_mean.numpy()[None],
+                    kf_cov=state.kf_cov.numpy()[None])
     return {**arrs, "iargs": iargs, "fargs": TC._float_args(cfg, T)}
 
 
@@ -234,18 +250,22 @@ def tracker_case(seed, K, T, D, crowd):
 
 
 def assert_tracker_equal(got, state, outs):
-    """Kernel outputs (the child process's out0..out17) against the plain
-    version's state and outputs: integers equal, floats within 1e-4 px
+    """Kernel outputs (the child process's out0..out17, and with kalman136
+    out18, out19: the filter) against the plain version's state and
+    outputs: integers and the filter equal, other floats within 1e-4 px
     (the emulation takes expf from the host's libm, the plain version
     from PyTorch's CPU kernels)."""
     names = [n for n, _ in TC._CARRIED] + ["counters", "det_track_slot"] + \
-        list(TC.OUT_KEYS)
+        list(TC.OUT_KEYS) + ["kf_mean", "kf_cov"]
     want = [getattr(state, n) for n, _ in TC._CARRIED] + \
         [torch.stack([state.next_id, state.frame]), state.det_track_slot] + \
-        [outs[k] for k in TC.OUT_KEYS]
-    for i, (name, w) in enumerate(zip(names, want)):
+        [outs[k] for k in TC.OUT_KEYS] + [state.kf_mean, state.kf_cov]
+    assert ("out18" in got) == (len(got) == 20)
+    for i, (name, w) in enumerate(zip(names, want[:len(got)])):
         g, w = got[f"out{i}"][0], w.numpy()
-        if w.dtype.kind == "f":
+        if name.startswith("kf_"):
+            np.testing.assert_array_equal(g, w, err_msg=name)
+        elif w.dtype.kind == "f":
             np.testing.assert_allclose(g, w, rtol=1e-6, atol=1e-4,
                                        err_msg=name)
         else:
@@ -347,5 +367,72 @@ def test_tracker_kernel_reid_mutation_is_caught(emulated, tmp_path, old,
                                                    embs)
     got = _launch(mutant, "tracker",
                   **tracker_inputs(state, dets, cfg, advance, embs))
+    with pytest.raises(AssertionError):
+        assert_tracker_equal(got, want_state, want_outs)
+
+
+def kalman_case(seed, K, T, D, crowd, reid):
+    """tracker_case (advance holes, crowded frames) continued from the pool
+    that the plain version leaves after 4 warm-up frames of the same scene,
+    its covariances then drawn at random: x and y apart (the y velocity
+    must take the x gain) and below 0.1, so that the free slots' sums of
+    process noise keep the last bit of 0.1f * 0.1f (on a variance of 100
+    it rounds away). With Re-ID also the detections' embeddings."""
+    state, dets, advance = tracker_case(seed, K + 4, T, D, crowd)
+    embs = torch.from_numpy(reid_embeddings_case(
+        seed, dets.valid.numpy())) if reid else None
+    cfg = TrackerConfig(max_tracks=T, max_detections=D,
+                        motion_model="kalman136",
+                        reid_weight=0.3 if reid else 0.0)
+    part = [Detections(*(getattr(dets, f.name)[sl]
+                         for f in dataclasses.fields(dets)))
+            for sl in (slice(0, 4), slice(4, None))]
+    state, _ = TC.tracker_chunk_plain(state, part[0], cfg, None,
+                                      None if embs is None else embs[:4])
+    assert state.active.any()
+    state.kf_cov = torch.from_numpy(np.random.default_rng(seed).uniform(
+        0.001, 0.1, (T, 136)).astype(np.float32))
+    return (state, part[1], advance[4:],
+            None if embs is None else embs[4:], cfg)
+
+
+@pytest.mark.parametrize("seed,K,T,D,crowd,reid", [
+    (1, 12, 32, 16, 12, False),     # advance holes, crowded frames
+    (0, 12, 16, 16, 12, True),      # slot exhaustion, Re-ID
+    (2, 12, 32, 16, 12, True),      # advance holes, Re-ID
+    (2, 5, 128, 64, 40, False),     # the main path's pool, crowded frames
+])
+def test_tracker_kernel_kalman_source_matches_plain(emulated, seed, K, T, D,
+                                                    crowd, reid):
+    """Kernel 3's kalman136 variant (accel and jerk memories 0.9) against
+    the plain version, with and without Re-ID: the filter's mean and
+    covariance equal, every slot's predicted."""
+    state, dets, advance, embs, cfg = kalman_case(seed, K, T, D, crowd, reid)
+    want_state, want_outs = TC.tracker_chunk_plain(state, dets, cfg, advance,
+                                                   embs)
+    got = _launch(emulated, "tracker",
+                  **tracker_inputs(state, dets, cfg, advance, embs))
+    assert_tracker_equal(got, want_state, want_outs)
+    assert not advance.all() and want_outs["emit"].any()
+
+
+@pytest.mark.parametrize("old,new", [
+    ("caj.x + cfg.noise[2]", "caj.x + 0.01f"),       # noise literal 0.01
+    ("pv.w + (use ? Kv * iy : 0.0f)",                # y velocity with Ky
+     "pv.w + (use ? 0.5f * Ky * iy : 0.0f)"),
+    ("const float4 pv = fm[2 * i], aj = fm[2 * i + 1];",   # active only
+     "if (!s.active[i / kNumKp]) { s.qx[i] = s.px[i]; s.qy[i] = s.py[i]; "
+     "continue; } const float4 pv = fm[2 * i], aj = fm[2 * i + 1];"),
+    ("        fm = sm;\n        fc = sc;\n", ""),   # no restore on advance 0
+])
+def test_tracker_kernel_kalman_mutation_is_caught(emulated, tmp_path, old,
+                                                  new):
+    """A kalman136 kernel with one of these faults must disagree with the
+    plain version: the comparison above can fail."""
+    mutant = _mutant(emulated, tmp_path, old, new)
+    state, dets, advance, embs, cfg = kalman_case(1, 12, 32, 16, 12, False)
+    want_state, want_outs = TC.tracker_chunk_plain(state, dets, cfg, advance)
+    got = _launch(mutant, "tracker",
+                  **tracker_inputs(state, dets, cfg, advance))
     with pytest.raises(AssertionError):
         assert_tracker_equal(got, want_state, want_outs)

@@ -1,7 +1,8 @@
 """Plain version of Kernel 3 (posebyte_tpu_torch/ops/tracker_chunk.py::
 tracker_chunk_plain) against the JAX package, on the cv cases of
-tests/test_pallas_tracker.py, with and without Re-ID, and with the torso
-tier switched off (which only the kernel refuses).
+tests/test_pallas_tracker.py, with and without Re-ID, with the kalman136
+motion model (with and without Re-ID), and with the torso tier switched
+off (which only the kernel refuses).
 
 References: the jitted lax.scan of tracker_step + extract_outputs_device
 (with the serving scan's advance blend where a mask is given), and
@@ -11,7 +12,8 @@ both packages.
 Tolerances: integer outputs and state fields (ids, emit, num_active,
 states, hits, ages, last_frame, active, det_track_slot, next_id, frame)
 equal; poses, boxes and scores within 1e-5 px plus 1e-6 of their value,
-velocities within 1e-4 px/frame: the tracker tolerance of
+velocities within 1e-4 px/frame, the kalman136 filter's mean and
+covariance like poses: the tracker tolerance of
 tests/test_torch_tracker.py (XLA's CPU compiler fuses poses + K * innov
 into one FMA, PyTorch rounds twice: one float32 ulp). Against the Pallas
 kernel, whose one-hot selections and Python-double constants round
@@ -19,7 +21,9 @@ differently again, poses within 1e-3 px, the bar tests/test_pallas_tracker
 .py holds that kernel to. With Re-ID the state's embeddings within 1e-5
 of JAX's scan; against the Pallas kernel, whose cosine puts no epsilon
 inside its square roots, ids, emit and num_active only, as
-tests/test_pallas_tracker.py compares it with the scan.
+tests/test_pallas_tracker.py compares it with the scan; with kalman136 the
+same three, since the Pallas kernel adds the process noise as the literals
+0.01 and 0.0025 where Kalman136 adds float32 squares.
 """
 import dataclasses
 
@@ -46,7 +50,7 @@ torch.set_num_threads(2)
 
 INT_STATE = ("ids", "states", "hits", "ages", "last_frame", "active",
              "next_id", "frame", "det_track_slot")
-FLOAT_STATE = ("poses", "velocities", "scores")
+FLOAT_STATE = ("poses", "velocities", "scores", "kf_mean", "kf_cov")
 INT_OUT = ("ids", "emit", "num_active")
 FLOAT_OUT = ("scores", "poses", "boxes")
 
@@ -121,7 +125,7 @@ def _run(det_list, T=128, D=64, cfg_kw=None, advance=None, pallas=False,
     jemb = None if embs is None else jnp.asarray(embs)
     want = _jax_scan(jstate, jdets, jcfg, jadv, jemb)
     _check(got, want, advance, reid=embs is not None)
-    if pallas and embs is not None:
+    if pallas and (embs is not None or tcfg.motion_model == "kalman136"):
         want = jax.device_get(tracker_chunk_pallas(
             jstate, jdets, jcfg, det_embeddings=jemb, advance=jadv,
             interpret=True))
@@ -288,10 +292,11 @@ def test_dispatch_and_refusals():
     assert int(s.frame) == 2 and o["ids"].shape == (2, 8)
     with pytest.raises(ValueError):           # the kernel takes CUDA only
         TC.tracker_chunk_cuda(state, dets, cfg)
+    # kalman136 runs in the plain version; the kernel, too, takes CUDA only
     kalman = dataclasses.replace(cfg, motion_model="kalman136")
-    with pytest.raises(NotImplementedError):
-        TC.tracker_chunk(state, dets, kalman)
-    with pytest.raises(NotImplementedError):
+    s, o = TC.tracker_chunk(state, dets, kalman)
+    assert int(s.frame) == 2 and not torch.equal(s.kf_cov, state.kf_cov)
+    with pytest.raises(ValueError):
         TC.tracker_chunk_cuda(state, dets, kalman)
     # only the kernel refuses torso_tier=False; the plain version runs it
     no_torso = dataclasses.replace(cfg, torso_tier=False)
@@ -366,3 +371,55 @@ def test_reid_advance_holes_and_streams():
         for f in dataclasses.fields(rs):
             assert torch.equal(getattr(stacked[0], f.name)[s],
                                getattr(rs, f.name)), f.name
+
+
+KALMAN = dict(motion_model="kalman136")
+
+
+@pytest.mark.parametrize("seed,T,D,cfg_kw,reid", [
+    (8, 128, 64, KALMAN, False),
+    (17, 128, 64, dict(KALMAN, reid_weight=0.4, accel_memory=0.8), True),
+    (3, 32, 16, dict(KALMAN, min_hits=1, max_age=2, lost_window=3,
+                     jerk_memory=0.7), False),
+])
+def test_kalman136_matches_jax_scan_and_pallas_ids(seed, T, D, cfg_kw, reid):
+    """kalman136 (the third-order predict of every slot, the per-keypoint
+    update, initiation) with and without Re-ID against JAX's scan, the
+    filter included; ids, emit and num_active also against the Pallas
+    kernel in interpret mode (the JAX test_chunk_kernel_kalman136 case)."""
+    dets, embs = _reid_dets(seed, 8, D)
+    state, outs = _run(dets, T=T, D=D, cfg_kw=cfg_kw,
+                       embs=embs if reid else None, pallas=True)
+    assert outs["emit"].any() and (state.kf_cov != 1.0).all(dim=1).any()
+
+
+def test_kalman136_advance_holes_streams_and_continuation():
+    """kalman136 with holes in the advance mask at S = 3 streams, each
+    against JAX's gated scan; the stacked streams equal the streams run
+    one by one; then a second chunk continues from the first's state."""
+    advs = [np.asarray([True, True, False, True, False, True, True, False]),
+            np.asarray([False, True, True, True, True, False, True, True]),
+            np.ones(8, bool)]
+    per_stream = []
+    for s, adv in enumerate(advs):
+        dets = _dropouts(SyntheticScene(3 + s, 960, 540, seed=40 + s), 12,
+                         64, s)
+        per_stream.append((dets, _run(dets[:8], cfg_kw=KALMAN,
+                                      advance=adv)))
+    cfg = TrackerConfig(**KALMAN)
+    stacked = TC.tracker_chunk_plain(
+        TC._stack([TrackerState.init(128, 64)] * 3),
+        TC._stack([_to_torch(_stack(d[:8]), Detections)
+                   for d, _ in per_stream]), cfg,
+        torch.from_numpy(np.stack(advs)))
+    for s, (_, (rs, ro)) in enumerate(per_stream):
+        for k in ro:
+            assert torch.equal(stacked[1][k][s], ro[k]), k
+        for f in dataclasses.fields(rs):
+            assert torch.equal(getattr(stacked[0], f.name)[s],
+                               getattr(rs, f.name)), f.name
+    dets, (first, _) = per_stream[0]
+    jstate = JState(**{f.name: jnp.asarray(getattr(first, f.name).numpy())
+                       for f in dataclasses.fields(JState)})
+    state, outs = _run(dets[8:], cfg_kw=KALMAN, state=jstate)
+    assert int(state.frame) == int(first.frame) + 4 and outs["emit"].any()
