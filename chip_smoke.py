@@ -59,11 +59,42 @@ Phases, each printing one JSON line with its elapsed seconds:
   kalman_cpu_vs_card  kalman136 in fp32, a chunk of K = 8 and 4 per-frame
                frames on the CPU and on the card: track ids equal,
                keypoints within 1e-2 px
+  int8_calibration  the int8 (w8a8) configuration: yolov8n-pose quantised
+               with PARTIAL_QUANT_SKIP (59 int8 convolutions), activation
+               scales by percentile calibration on the card over 16
+               synthetic-scene frames rendered at 640
+  int8_kernels Kernel 4 against its plain version on the card (an exact
+               float64 convolution): int32 sums and bf16 outputs bit for
+               bit at the JAX kernel test's shape, at every distinct shape
+               the int8 path gives Kernel 4 for one frame (B = 1, its own
+               inputs, recorded by wrapping ops.conv_int8.conv_int8_cuda
+               around one forward), and at every one of those shapes at
+               B = 128; each distinct shape timed at B = 128
+               (kernel, plain version, bound, and two yardsticks the port
+               never calls: cuDNN's bf16 conv of the same shape and
+               torch._int_mm on the im2col'd input), summed per chunk
+  int8_main_path   the per-frame path at int8 on the card, bf16
+               activations, 16 frames: launches per frame conv_int8 59,
+               nms_keep 1, auction 3
+  int8_chunk_path  the chunk path at int8, K = 128: one warm-up and two
+               timed chunks, launches per chunk conv_int8 59, nms_keep 1,
+               tracker_chunk 1, auction 0; frames/s
+  int8_cpu_vs_card int8 with float32 activations, a chunk of K = 8 and 4
+               per-frame frames on the CPU and on the card: track ids
+               equal, keypoints within 8 px and their median difference
+               within 0.5 px (INT8_KP_MAX_PX says why); and on these
+               frames the activation quantisation on the card equal to the
+               CPU's on values at (n + 0.5) * s_x for every calibrated s_x
+               and on the float inputs the CPU computed for every int8
+               conv, with the int8 activations that differ when each
+               device computes its own float inputs counted per conv and
+               frame
 Each path's launch counts are set to 0 just before it runs and read just
 after. Then a line {"kernels": [...]} with each kernel's launches (summed
 over the paths' runs), error, times and bound (the tracker chunk's also
-with Re-ID and with kalman136, and the variants it was held in), and last
-{"ok": true, "device": {...}}. Any failure raises and exits non-zero
+with Re-ID and with kalman136, and the variants it was held in; Kernel 4's
+per chunk of the int8 path, with its instantiations and yardsticks), and
+last {"ok": true, "device": {...}}. Any failure raises and exits non-zero
 before that line; a hang is cut by faulthandler.
 """
 import faulthandler
@@ -91,6 +122,15 @@ HEAD_ASSET = "reid-head-synthetic.safetensors"
 HBM_BYTES_S = 3.35e12
 F32_OPS_S = 67e12
 INT8_OPS_S = 1979e12   # dense int8 tensor-core operations/s
+INT8_CALIB_FRAMES = 16  # one calibration batch
+# int8 card against CPU: keypoints within this (median within 0.5 px). The
+# float convolutions of cuDNN and oneDNN differ ~1e-6 relative, which moves
+# a few activations across a rounding boundary of the next quantisation
+# (int8_quant_witness counts them per conv; the quantisation itself is
+# equal on equal inputs); one int8 step of a head activation moves a
+# keypoint by up to ~4 px at stride 32, and the flips cascade through the
+# layers after them.
+INT8_KP_MAX_PX = 8.0
 
 
 def emit(phase, t0, **kw):
@@ -152,6 +192,18 @@ def auction_case(rng, R=128, C=64):
     cost[:, 5] = 1e9
     active = rng.uniform(size=R) > 0.1
     return cost.astype(np.float32), active
+
+
+def conv_int8_work(B, H, W, C, O, k, stride, bias=True):
+    """(bytes, int8 operations) of one int8 convolution: the activation
+    [B, H, W, C] and the weights [k, k, C, O] int8 read once, scale (and
+    bias) float32 read once, the bf16 output written once; a multiply and
+    an add per tap, input channel and output element."""
+    Ho, Wo = (H + 2 * (k // 2) - k) // stride + 1, \
+        (W + 2 * (k // 2) - k) // stride + 1
+    nbytes = (B * H * W * C + k * k * C * O + 4 * O * (1 + bias)
+              + 2 * B * Ho * Wo * O)
+    return nbytes, 2 * k * k * C * B * Ho * Wo * O
 
 
 def nms_work(poses, boxes, valid, iou_thr):
@@ -308,17 +360,6 @@ def tracker_chunk_row(dev):
         "bytes": nbytes, "ops": ops}
 
 
-def conv3x3_int8_work(B=2, H=8, W=8, Cin=128, O=128):
-    """(bytes, int8 operations) of the TPU kernel that is not ported yet,
-    posebyte_tpu/ops/pallas_conv.py::conv3x3_int8_pallas, at the shape of
-    its JAX test (tests/test_pallas_kernels.py:79): x [B, H, W, C] int8 and
-    w [3, 3, C, O] int8 read once, the scale [O] float32 read once, the
-    output [B, H, W, O] bf16 written once; a multiply and an add per tap,
-    input channel and output element."""
-    nbytes = B * H * W * Cin + 9 * Cin * O + 4 * O + 2 * B * H * W * O
-    return nbytes, 2 * 9 * Cin * B * H * W * O
-
-
 def phase_kernels(t0):
     import numpy as np
     import torch
@@ -389,13 +430,7 @@ def phase_kernels(t0):
     done = {"nms_keep": N.nms_keep_cuda.launches,
             "auction": A.auction_assign_cuda.launches,
             "tracker_chunk": TC.tracker_chunk_cuda.launches}
-    c_bytes, c_ops = conv3x3_int8_work()
-    c_ms, c_by = bound(c_bytes, c_ops, INT8_OPS_S)
-    emit("kernels", t0, not_ported=[{
-        "name": "conv3x3_int8",
-        "replaces": "posebyte_tpu/ops/pallas_conv.py:56",
-        "shape": "B=2,H=W=8,C=O=128", "bytes": c_bytes, "ops": c_ops,
-        "bound_ms": c_ms, "bound_by": c_by}], kernels=[
+    emit("kernels", t0, kernels=[
         {"name": r["name"], "launches": done[k] - start[k],
          "mismatches": r["mismatches"], "max_abs_err": r["max_abs_err"],
          "kernel_ms": r["ms"], "ms_per_frame": r.get("ms_per_frame"),
@@ -1074,9 +1109,452 @@ def phase_kalman_cpu_vs_card(t0, params):
         raise SystemExit("kalman136 on the card and the CPU disagree")
 
 
+def int8_params(params):
+    """The int8 configuration: the checkpoint quantised with
+    PARTIAL_QUANT_SKIP, activation scales by percentile calibration on the
+    card over INT8_CALIB_FRAMES synthetic-scene frames at 640."""
+    from posebyte_tpu_torch.models import quant as Q
+    from posebyte_tpu_torch.utils.synthetic import calibration_frames
+    return Q.calibrate_activations(
+        Q.quantize_params(params), "yolov8n-pose",
+        calibration_frames(INT8_CALIB_FRAMES, LETTERBOX, N_PERSONS, SEED),
+        device="cuda")
+
+
+def phase_int8_calibration(t0, params):
+    t = time.perf_counter()
+    qparams = int8_params(params)
+    scales = [float(v) for k, v in qparams.items()
+              if k.endswith(".act_scale")]
+    emit("int8_calibration", t0, calibration_s=time.perf_counter() - t,
+         frames=INT8_CALIB_FRAMES, method="percentile",
+         int8_convs=len(scales), act_scale_min=min(scales),
+         act_scale_max=max(scales))
+    if len(scales) != 59:
+        raise SystemExit(f"{len(scales)} calibrated convolutions, not 59")
+    return qparams
+
+
+def int8_conv_calls(pipe):
+    """The Kernel 4 calls of one frame of the int8 path, in order:
+    [(key, k, stride, xq, wq, scale, bias)], recorded by wrapping
+    ops.conv_int8.conv_int8_cuda around one forward of a synthetic frame;
+    the wrapper is removed after."""
+    import torch
+    from posebyte_tpu_torch.models.yolo_pose import forward_heads
+    from posebyte_tpu_torch.ops import conv_int8 as CI
+    from posebyte_tpu_torch.ops.preprocess import letterbox_flat_nhwc
+    keys = {id(v): k[:-3] for k, v in pipe.params.items()
+            if k.endswith(".wq")}
+    calls, kernel = [], CI.conv_int8_cuda
+
+    def record(xq, wq, scale, bias, k, stride, out_dtype=torch.bfloat16):
+        calls.append((keys[id(wq)], k, stride, xq, wq, scale, bias))
+        return kernel(xq, wq, scale, bias, k, stride, out_dtype)
+
+    _, frames = make_frames(1)
+    record.launches = 0          # the kernel counts its launch here
+    CI.conv_int8_cuda = record
+    try:
+        with torch.inference_mode():
+            flat = pipe.prestage_frame(frames[0])
+            img = letterbox_flat_nhwc(flat[None], WIDTH, HEIGHT, LETTERBOX)
+            forward_heads(pipe.params, img.to(pipe.dtype), pipe.family)
+    finally:
+        CI.conv_int8_cuda = kernel
+    return calls
+
+
+def conv_mismatches(xq, wq, scale, bias, k, stride):
+    """(int32 sums, bf16 outputs) of Kernel 4 against its plain version:
+    (mismatched elements, max abs difference of the bf16 outputs)."""
+    import torch
+    from posebyte_tpu_torch.ops import conv_int8 as CI
+    mism, err = 0, 0.0
+    for dtype in (torch.int32, torch.bfloat16):
+        got = CI.conv_int8_cuda(xq, wq, scale, bias, k, stride, dtype)
+        want = CI.conv_int8_plain(xq, wq, scale, bias, k, stride, dtype)
+        torch.cuda.synchronize()
+        if dtype == torch.bfloat16:
+            mism += int((got.float().view(torch.int32)
+                         != want.float().view(torch.int32)).sum())
+            err = max(err, float((got.float() - want.float()).abs().max()))
+        else:
+            mism += int((got != want).sum())
+    return mism, err
+
+
+def int_mm_ms(x, wq, k, stride, reps):
+    """Yardstick: torch._int_mm (cuBLASLt's s8 GEMM) on the im2col'd
+    input [M, k * k * Cp] and the packed weights [k * k * Cp, Op], the
+    faster of the weights column-major (a transposed view) and row-major;
+    the im2col is not timed. None (with the reason) where it refuses
+    both."""
+    import torch
+    import torch.nn.functional as F
+    B, H, W, Cp = x.shape
+    pad = k // 2
+    Ho, Wo = (H + 2 * pad - k) // stride + 1, (W + 2 * pad - k) // stride + 1
+    xp = F.pad(x, (0, 0, pad, pad, pad, pad))
+    cols = torch.cat([xp[:, dy:dy + stride * Ho:stride,
+                         dx:dx + stride * Wo:stride]
+                      for dy in range(k) for dx in range(k)], dim=-1)
+    a = cols.reshape(B * Ho * Wo, k * k * Cp)
+    ms, why = [], None
+    for b in (wq.reshape(wq.shape[0], -1).t(),
+              wq.reshape(wq.shape[0], -1).t().contiguous()):
+        try:
+            ms.append(cuda_ms(lambda: torch._int_mm(a, b), reps))
+        except RuntimeError as e:
+            why = str(e).splitlines()[0][:160]
+    return (min(ms), None) if ms else (None, why)
+
+
+def phase_int8_kernels(t0, qparams, rows):
+    """Kernel 4 against its plain version on the card, and its times per
+    distinct shape of the int8 path at B = CHUNK, summed per chunk."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from posebyte_tpu_torch.core import PipelineConfig
+    from posebyte_tpu_torch.ops import conv_int8 as CI
+    from posebyte_tpu_torch.pipeline import PosePipeline
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED)
+    mism, err = 0, 0.0
+    cases = []
+
+    # the JAX kernel test's shape: B = 2, 8x8, C = O = 128, no bias
+    xq = CI.quantize_activation(torch.from_numpy(rng.integers(
+        -127, 128, (2, 128, 8, 8)).astype(np.float32)).to(dev),
+        torch.tensor(1.0, device=dev))
+    wq = CI.pack_weights(torch.from_numpy(rng.integers(
+        -127, 128, (128, 128, 3, 3)).astype(np.int8)).to(dev))
+    scale = torch.from_numpy(rng.uniform(0.001, 0.01, 128).astype(
+        np.float32)).to(dev)
+    m, e = conv_mismatches(xq, wq, scale, None, 3, 1)
+    mism, err = mism + m, max(err, e)
+    cases.append({"shape": "jax_test B=2,8x8,C=O=128,k=3,s=1",
+                  "mismatches": m})
+
+    # every distinct shape of the int8 path, B = 1, its own inputs
+    pipe = PosePipeline(PipelineConfig(precision="int8"), qparams)
+    calls = int8_conv_calls(pipe)
+    shapes = {}
+    for key, k, stride, xq, wq, scale, bias in calls:
+        _, H, W, Cp = xq.shape
+        C, O = qparams[key + ".w"].shape[1], scale.shape[0]
+        sk = (k, stride, H, W, C, O)
+        if sk not in shapes:
+            shapes[sk] = {"key": key, "count": 0,
+                          "args": (xq, wq, scale, bias)}
+            m, e = conv_mismatches(xq, wq, scale, bias, k, stride)
+            mism, err = mism + m, max(err, e)
+            cases.append({"shape": f"B=1,{H}x{W},C={C},O={O},k={k},"
+                                   f"s={stride}", "mismatches": m})
+        shapes[sk]["count"] += 1
+
+    # each distinct shape at B = CHUNK: checked and timed
+    per_shape, inst = [], {}
+    for (k, stride, H, W, C, O), sh in shapes.items():
+        xq, wq, scale, bias = sh["args"]
+        Cp = xq.shape[-1]
+        x = torch.zeros((CHUNK, H, W, Cp), dtype=torch.int8, device=dev)
+        x[..., :C] = torch.randint(-127, 128, (CHUNK, H, W, C),
+                                   dtype=torch.int8, device=dev)
+        m, e = conv_mismatches(x, wq, scale, bias, k, stride)
+        mism, err = mism + m, max(err, e)
+        cases.append({"shape": f"B={CHUNK},{H}x{W},C={C},O={O},"
+                               f"k={k},s={stride}", "mismatches": m})
+        ms = cuda_ms(lambda: CI.conv_int8_cuda(x, wq, scale, bias, k,
+                                               stride), 10)
+        plain = cuda_ms(lambda: CI.conv_int8_plain(x, wq, scale, bias, k,
+                                                   stride), 1)
+        xb = torch.randn((CHUNK, C, H, W), device=dev).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        wb = torch.randn((O, C, k, k), device=dev).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        bb = torch.randn(O, device=dev).to(torch.bfloat16)
+        cudnn = cuda_ms(lambda: F.conv2d(xb, wb, bb, stride=stride,
+                                         padding=k // 2), 10)
+        mm, mm_why = int_mm_ms(x, wq, k, stride, 10)
+        nbytes, ops = conv_int8_work(CHUNK, H, W, C, O, k, stride,
+                                     bias is not None)
+        b_ms, b_by = bound(nbytes, ops, INT8_OPS_S)
+        n = sh["count"]
+        per_shape.append({
+            "key": sh["key"], "k": k, "stride": stride, "H": H, "W": W,
+            "C": C, "Cp": Cp, "O": O, "count": n, "kernel_ms": ms,
+            "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+            "cudnn_bf16_ms": cudnn, "int_mm_ms": mm, "int_mm_refused": mm_why,
+            "tops": ops / ms / 1e9})
+        agg = inst.setdefault(f"{k}x{k}s{stride}", {
+            "convs": 0, "kernel_ms": 0.0, "plain_ms": 0.0, "bytes": 0,
+            "ops": 0, "cudnn_bf16_ms": 0.0, "int_mm_ms": 0.0,
+            "int_mm_shapes_refused": 0})
+        agg["convs"] += n
+        agg["kernel_ms"] += n * ms
+        agg["plain_ms"] += n * plain
+        agg["bytes"] += n * nbytes
+        agg["ops"] += n * ops
+        agg["cudnn_bf16_ms"] += n * cudnn
+        if mm is None:
+            agg["int_mm_shapes_refused"] += 1
+        else:
+            agg["int_mm_ms"] += n * mm
+        del x, xb
+    for agg in inst.values():
+        agg["bound_ms"], agg["bound_by"] = bound(agg["bytes"], agg["ops"],
+                                                 INT8_OPS_S)
+    total = {f: sum(a[f] for a in inst.values())
+             for f in ("convs", "kernel_ms", "plain_ms", "bytes", "ops",
+                       "cudnn_bf16_ms", "int_mm_ms")}
+    b_ms, b_by = bound(total["bytes"], total["ops"], INT8_OPS_S)
+    emit("int8_kernels", t0, cases=cases, mismatches=mism,
+         max_abs_err=err, distinct_shapes=len(shapes),
+         convs_per_frame=len(calls), shapes_b128=per_shape,
+         instantiations=inst, per_chunk={**total, "bound_ms": b_ms,
+                                         "bound_by": b_by})
+    rows["conv3x3_int8"] = {
+        "name": "conv3x3_int8", "route": "cuda",
+        "source": "posebyte_tpu_torch/csrc/conv_int8.cu",
+        "replaces": "posebyte_tpu/ops/pallas_conv.py:56",
+        "mismatches": mism, "max_abs_err": err, "launches": 0,
+        "ms": total["kernel_ms"], "ms_per_frame": total["kernel_ms"] / CHUNK,
+        "plain_ms": total["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None,
+        "yardstick_cudnn_bf16_ms": total["cudnn_bf16_ms"],
+        "yardstick_int_mm_ms": total["int_mm_ms"],
+        "instantiations": {n: {f: a[f] for f in (
+            "convs", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+            "cudnn_bf16_ms", "int_mm_ms", "int_mm_shapes_refused")}
+            for n, a in inst.items()},
+        "shape": f"the int8 path's {len(calls)} convolutions per frame at "
+                 f"B={CHUNK} (one chunk)"}
+    if mism or len(calls) != 59:
+        raise SystemExit(f"Kernel 4: {mism} mismatches with its plain "
+                         f"version, {len(calls)} calls per frame")
+
+
+def _int8_counts():
+    from posebyte_tpu_torch.ops.conv_int8 import conv_int8_cuda
+    return {**_kernel_counts(), "conv_int8": conv_int8_cuda}
+
+
+def phase_int8_main_path(t0, qparams, rows):
+    """The per-frame path at int8 (bf16 activations): FRAMES frames
+    through process_frame + fetch_outputs; launches per frame conv_int8
+    59, nms_keep 1, auction 3; tracks within 10 px of the people."""
+    import numpy as np
+    from posebyte_tpu_torch.core import PipelineConfig
+    from posebyte_tpu_torch.pipeline import PosePipeline
+    gts, frames = make_frames(FRAMES)
+    pipe = PosePipeline(PipelineConfig(precision="int8"), qparams)
+    kernels = _int8_counts()
+    for fn in kernels.values():
+        fn.launches = 0
+    ms = []
+    for fr in frames:
+        t = time.perf_counter()
+        res = pipe.fetch_outputs(pipe.process_frame(fr), WIDTH, HEIGHT)
+        ms.append((time.perf_counter() - t) * 1e3)
+        for r in res:
+            if not (np.isfinite(r.keypoints).all()
+                    and np.isfinite(r.bbox).all()):
+                raise SystemExit("non-finite int8 track output")
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    errs = track_errors(res, gts[-1])
+    emit("int8_main_path", t0, frames=FRAMES, launches=launches,
+         ms_per_frame_after_warmup=float(np.mean(ms[4:])),
+         last_frame_kp_err_px=errs)
+    rows["conv3x3_int8"]["launches"] = launches["conv_int8"]
+    for k, r in rows.items():
+        if k != "conv3x3_int8":
+            r["launches"] += launches[k]
+    if launches != {"nms_keep": FRAMES, "auction": 3 * FRAMES,
+                    "tracker_chunk": 0, "conv_int8": 59 * FRAMES}:
+        raise SystemExit(f"int8 per-frame launch counts {launches}")
+    if max(errs) > 10.0:
+        raise SystemExit(f"int8 tracks miss the synthetic people: {errs}")
+
+
+def phase_int8_chunk_path(t0, qparams, rows):
+    """The chunk path at int8, K = CHUNK: one warm-up and TIMED_CHUNKS
+    timed chunks; launches per chunk conv_int8 59, nms_keep 1,
+    tracker_chunk 1, auction 0; frames/s."""
+    import numpy as np
+    import torch
+    from posebyte_tpu_torch.core import PipelineConfig
+    from posebyte_tpu_torch.pipeline import PosePipeline
+    pipe = PosePipeline(PipelineConfig(precision="int8"), qparams)
+    torch.cuda.reset_peak_memory_stats()
+    kernels = _int8_counts()
+    for fn in kernels.values():
+        fn.launches = 0
+    ms, per_chunk, errs = [], [], []
+    for frames, gt in make_chunks(1 + TIMED_CHUNKS, CHUNK):
+        before = {k: fn.launches for k, fn in kernels.items()}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = pipe.fetch_chunk_outputs(pipe.process_chunk(frames), WIDTH,
+                                       HEIGHT)
+        ms.append((time.perf_counter() - t) * 1e3)
+        per_chunk.append({k: fn.launches - before[k]
+                          for k, fn in kernels.items()})
+        errs = track_errors(res[-1], gt)
+        for r in res:
+            for tr in r:
+                if not (np.isfinite(tr.keypoints).all()
+                        and np.isfinite(tr.bbox).all()):
+                    raise SystemExit("non-finite int8 track output")
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    timed = ms[1:]
+    emit("int8_chunk_path", t0, chunk=CHUNK, launches_per_chunk=per_chunk,
+         ms_first_chunk=ms[0], ms_per_chunk=timed,
+         frames_per_s=CHUNK * len(timed) / (sum(timed) / 1e3),
+         last_frame_kp_err_px=errs,
+         peak_mem_mb=torch.cuda.max_memory_allocated() / 2**20)
+    rows["conv3x3_int8"]["launches"] += launches["conv_int8"]
+    for k, r in rows.items():
+        if k != "conv3x3_int8":
+            r["launches"] += launches[k]
+    if any(c != {"nms_keep": 1, "auction": 0, "tracker_chunk": 1,
+                 "conv_int8": 59} for c in per_chunk):
+        raise SystemExit(f"int8 chunk launch counts per chunk {per_chunk}")
+    if max(errs) > 10.0:
+        raise SystemExit(f"int8 chunk tracks miss the synthetic people: "
+                         f"{errs}")
+
+
+def int8_quant_witness(qparams, frames):
+    """The activation quantisation on the card against the CPU, with
+    float32 activations at LETTERBOX. Returns (ties checked, ties
+    mismatched, same-input mismatches, letterbox max abs difference,
+    {conv key: [int8 elements that differ, largest step]} in the forward's
+    order, [int8 elements that differ per frame]):
+    - ties: x = float32((n + 0.5) * s_x), n in -140..139, for each
+      calibrated s_x; the card, the CPU and numpy's float32
+      clip(round_half_even(x / s_x)) must agree (the card must divide by
+      s_x, not multiply by its reciprocal);
+    - same input: each int8 conv's float input as the CPU computed it,
+      quantised on the card and on the CPU, must be equal;
+    - own inputs: `frames` letterboxed and run through the forward on each
+      device, as the pipelines do; the int8 activations that differ there
+      come from the float operations before each quantisation."""
+    import numpy as np
+    import torch
+    from posebyte_tpu_torch.core import PipelineConfig
+    from posebyte_tpu_torch.models import layers as L
+    from posebyte_tpu_torch.models.yolo_pose import forward_heads
+    from posebyte_tpu_torch.ops.preprocess import letterbox_flat_nhwc
+    from posebyte_tpu_torch.pipeline import PosePipeline
+    quantize = L.quantize_activation
+    cfg = PipelineConfig(precision="int8")
+    inputs, imgs = {}, {}
+    for dev in ("cpu", "cuda"):
+        pipe = PosePipeline(cfg, qparams, device=dev, dtype=torch.float32)
+        keys = {id(v): k[:-len(".act_scale")] for k, v in pipe.params.items()
+                if k.endswith(".act_scale")}
+        rec = inputs[dev] = {}
+
+        def record(x, s_x, keys=keys, rec=rec):
+            rec[keys[id(s_x)]] = (x, s_x)
+            return quantize(x, s_x)
+
+        L.quantize_activation = record
+        try:
+            with torch.inference_mode():
+                imgs[dev] = torch.cat([letterbox_flat_nhwc(
+                    pipe.prestage_frame(f)[None], WIDTH, HEIGHT,
+                    LETTERBOX).float() for f in frames])
+                forward_heads(pipe.params, imgs[dev], pipe.family)
+        finally:
+            L.quantize_activation = quantize
+    lb_diff = float((imgs["cuda"].cpu() - imgs["cpu"]).abs().max())
+    per_frame = torch.zeros(len(frames), dtype=torch.int64)
+    n_ties = tie_mism = same_mism = 0
+    flips = {}
+    n = np.arange(-140, 140, dtype=np.float32)
+    with torch.inference_mode():
+        for key, (xc, sc) in inputs["cpu"].items():
+            xg, sg = inputs["cuda"][key]
+            s = np.float32(sc.item())
+            x = ((n + np.float32(0.5)) * s).astype(np.float32)
+            r = np.round(x / s)
+            want = np.clip(r, -127, 127).astype(np.int8)
+            n_ties += int((r != np.floor(x / s + np.float32(0.5))).sum())
+            xt = torch.from_numpy(x).reshape(1, 1, 1, -1)
+            for got in (quantize(xt, sc), quantize(xt.cuda(), sg).cpu()):
+                tie_mism += int((got[0, 0, :, 0].numpy() != want).sum())
+            qc = quantize(xc, sc)
+            same_mism += int((quantize(xc.cuda(), sg).cpu() != qc).sum())
+            d = (quantize(xg, sg).cpu().int() - qc.int()).abs()
+            flips[key] = [int((d > 0).sum()), int(d.max())]
+            per_frame += (d > 0).sum(dim=(1, 2, 3))
+    return n_ties, tie_mism, same_mism, lb_diff, flips, per_frame.tolist()
+
+
+def phase_int8_cpu_vs_card(t0, qparams):
+    """int8 with float32 activations: a chunk of CMP_CHUNK frames, then 4
+    per-frame frames, on the CPU (plain versions) and on the card
+    (Kernels 1-4); ids equal, keypoints within INT8_KP_MAX_PX, their median
+    difference within 0.5 px."""
+    import numpy as np
+    import torch
+    from posebyte_tpu_torch.core import PipelineConfig
+    from posebyte_tpu_torch.pipeline import PosePipeline
+    frames, _ = next(make_chunks(1, CMP_CHUNK + 4))
+    cfg = PipelineConfig(precision="int8")
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        pipe = PosePipeline(cfg, qparams, device=dev, dtype=torch.float32)
+        runs[dev] = pipe.fetch_chunk_outputs(
+            pipe.process_chunk(frames[:CMP_CHUNK]), WIDTH, HEIGHT)
+        runs[dev] += [pipe.fetch_outputs(pipe.process_frame(f), WIDTH, HEIGHT)
+                      for f in frames[CMP_CHUNK:]]
+    ids_equal, diffs, frame_max = True, [], []
+    for a, b in zip(runs["cpu"], runs["cuda"]):
+        ids_equal &= [t.track_id for t in a] == [t.track_id for t in b]
+        frame_max.append(0.0)
+        if len(a) == len(b) and a:
+            diffs.append(np.abs(np.stack([t.keypoints[:, :2] for t in a])
+                                - np.stack([t.keypoints[:, :2] for t in b]))
+                         .ravel())
+            frame_max[-1] = float(diffs[-1].max())
+    d = np.concatenate(diffs) if diffs else np.zeros(1)
+    n_ties, tie_mism, same_mism, lb_diff, flips, per_frame = \
+        int8_quant_witness(qparams, frames)
+    flipped = [k for k, (f, _) in flips.items() if f]
+    emit("int8_cpu_vs_card", t0, chunk=CMP_CHUNK, frames=4,
+         quantize_ties=n_ties, quantize_ties_mismatches=tie_mism,
+         quantize_same_input_mismatches=same_mism,
+         letterbox_max_diff=lb_diff,
+         own_input_flips_total=sum(f for f, _ in flips.values()),
+         own_input_first_flipped_conv=flipped[0] if flipped else None,
+         own_input_convs_flipped=len(flipped),
+         own_input_flips_per_frame=per_frame,
+         max_kp_diff_px_per_frame=frame_max,
+         own_input_flips_per_conv={k: v for k, v in flips.items() if v[0]},
+         ids_equal=ids_equal, max_kp_diff_px=float(d.max()),
+         kp_diff_px_p50_p90_p99=[float(np.percentile(d, q))
+                                 for q in (50, 90, 99)],
+         share_within_0_01_px=float((d <= 1e-2).mean()),
+         tracks_per_frame=[len(r) for r in runs["cuda"]])
+    if not ids_equal or not any(runs["cuda"]) or np.median(d) > 0.5 \
+            or d.max() > INT8_KP_MAX_PX or tie_mism or same_mism \
+            or n_ties == 0:
+        raise SystemExit("int8 on the card and the CPU disagree")
+
+
 def kernel_label(mangled):
-    """A kernel's mangled name -> nms_keep, auction, tracker_chunk<cv> or
-    tracker_chunk<kalman136> (its template argument)."""
+    """A kernel's mangled name -> nms_keep, auction, tracker_chunk<cv>,
+    tracker_chunk<kalman136> or conv_int8<k,stride,output type> (its
+    template arguments)."""
+    import re
+    m = re.search(r"conv_int8_kernelILi(\d)ELi(\d)E(\w)", mangled)
+    if m:
+        out = {"t": "bf16", "f": "f32", "i": "i32"}.get(m.group(3), "?")
+        return f"conv_int8<{m.group(1)},{m.group(2)},{out}>"
     for base in ("nms_keep", "auction", "tracker_chunk"):
         if base + "_kernel" in mangled:
             if base == "tracker_chunk":
@@ -1134,12 +1612,19 @@ def main():
     phase_kalman_main_path(t0, params, rows)
     phase_kalman_chunk_path(t0, params, rows)
     phase_kalman_cpu_vs_card(t0, params)
+    qparams = phase_int8_calibration(t0, params)
+    phase_int8_kernels(t0, qparams, rows)
+    phase_int8_main_path(t0, qparams, rows)
+    phase_int8_chunk_path(t0, qparams, rows)
+    phase_int8_cpu_vs_card(t0, qparams)
 
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "variants", "ms_reid", "plain_ms_reid",
             "bound_ms_reid", "bound_by_reid", "ms_kalman", "plain_ms_kalman",
-            "bound_ms_kalman", "bound_by_kalman")
+            "bound_ms_kalman", "bound_by_kalman", "ms_per_frame",
+            "instantiations", "yardstick_cudnn_bf16_ms",
+            "yardstick_int_mm_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in rows.values()]}), flush=True)
     faulthandler.cancel_dump_traceback_later()

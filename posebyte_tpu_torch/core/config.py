@@ -94,4 +94,4 @@ class PipelineConfig:
     detector: DetectorConfig = DetectorConfig()
     tracker: TrackerConfig = TrackerConfig()
     model_name: str = "yolov8n-pose"
-    precision: str = "bf16"         # fp32 | bf16 (int8 is not ported yet)
+    precision: str = "bf16"         # fp32 | bf16 | int8 (bf16 activations)

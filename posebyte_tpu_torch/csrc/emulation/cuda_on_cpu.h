@@ -36,6 +36,7 @@ inline int g_last_error = 0;
 #define __global__
 #define __device__
 #define __host__
+#define __forceinline__ inline
 #define __launch_bounds__(x)
 #define __restrict__ __restrict
 typedef int cudaError_t;
@@ -73,6 +74,17 @@ struct alignas(16) float4 {
 };
 inline float4 make_float4(float x, float y, float z, float w) {
   return float4{x, y, z, w};
+}
+struct alignas(16) int4 {
+  int x, y, z, w;
+};
+inline int4 make_int4(int x, int y, int z, int w) { return int4{x, y, z, w}; }
+// Four signed byte products of a and b summed into c (the card's dp4a).
+inline int __dp4a(int a, int b, int c) {
+  for (int i = 0; i < 4; ++i)
+    c += static_cast<int8_t>(static_cast<unsigned>(a) >> (8 * i)) *
+         static_cast<int8_t>(static_cast<unsigned>(b) >> (8 * i));
+  return c;
 }
 template <class T>
 inline T __ldg(const T* p) { return *p; }

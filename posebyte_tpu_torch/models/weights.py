@@ -82,12 +82,14 @@ def write_safetensors(path: str, tensors: dict, metadata: dict | None = None):
 
 
 def _to_torch_layout(flat: dict) -> dict:
-    """HWIO conv weights -> OIHW; everything else unchanged (float32)."""
+    """HWIO conv weights -> OIHW. Quantised weights stay int8 (the
+    per-channel "scale" and the activation's "act_scale", 0-d, are
+    float32 like every other tensor)."""
     out = {}
     for k, v in flat.items():
-        if k.endswith(".scale") or k.endswith(".act_scale"):
-            raise ValueError(f"{k}: quantized checkpoints are not ported yet")
-        v = np.asarray(v, np.float32)
+        v = np.asarray(v)
+        if not (k.endswith(".w") and v.dtype == np.int8):
+            v = v.astype(np.float32)
         if v.ndim == 4:
             v = np.ascontiguousarray(np.transpose(v, (3, 2, 0, 1)))
         out[k] = v
@@ -95,14 +97,28 @@ def _to_torch_layout(flat: dict) -> dict:
 
 
 def load_params(path: str, name: str | None = None):
-    """Load a checkpoint saved by the JAX package -> (params, model name).
+    """Load a checkpoint saved by the JAX package (float, or int8 from
+    models.quant) -> (params, model name).
 
-    params is the port's flat dict (OIHW conv weights, float32 numpy)."""
+    params is the port's flat dict (OIHW conv weights, numpy)."""
     flat, meta = read_safetensors(path)
     name = name or meta.get("model")
     if name is None:
         raise ValueError(f"{path}: no model name in the metadata; pass name=")
     return _to_torch_layout(flat), name
+
+
+def save_params(params: dict, path: str, name: str):
+    """Write the port's flat dict as the JAX package's checkpoint
+    (posebyte_tpu/models/weights.py::save_params): HWIO conv weights, the
+    same keys and metadata, so either package loads it."""
+    flat = {}
+    for k, v in params.items():
+        v = np.asarray(v)
+        flat[k] = np.ascontiguousarray(np.transpose(v, (2, 3, 1, 0))) \
+            if v.ndim == 4 else v
+    write_safetensors(path, flat, {"model": name,
+                                   "format": "posebyte-tpu-v1"})
 
 
 def params_from_jax(tree) -> dict:

@@ -25,7 +25,8 @@ import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
-SOURCES = ("nms_keep.cu", "auction.cu", "tracker_chunk.cu")
+SOURCES = ("nms_keep.cu", "auction.cu", "tracker_chunk.cu",
+           "conv_int8.cu")
 HEADERS = ("auction.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
@@ -46,6 +47,8 @@ _SIGNATURES = {
                                         _c_void_p]),
     "posebyte_tracker_chunk_smem_bytes": (ctypes.c_size_t,
                                           [_c_int, _c_int, _c_int]),
+    "posebyte_conv_int8": (_c_int, [_c_void_p] * 5 + [_c_int] * 9
+                           + [_c_void_p]),
     "posebyte_error_string": (ctypes.c_char_p, [_c_int]),
 }
 

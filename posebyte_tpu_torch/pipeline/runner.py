@@ -32,6 +32,7 @@ from torch.profiler import record_function
 from ..core.config import PipelineConfig
 from ..core.device import resolve_device, set_numeric_settings
 from ..core.structs import Detections, TrackerState
+from ..models.layers import prepare_params
 from ..models.weights import fold_stem_preprocess
 from ..models.yolo_pose import MODEL_CONFIGS, forward_heads
 from ..ops.decode import decode_topk
@@ -42,7 +43,10 @@ from ..ops.tracker_chunk import tracker_chunk
 from ..tracker.output import TrackOutput, extract_outputs_device
 from ..tracker.step import tracker_step
 
-_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
+# The activations' type per precision; int8 runs bf16 activations between
+# its w8a8 convolutions, as the JAX runner does.
+_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16,
+           "int8": torch.bfloat16}
 
 
 class PosePipeline:
@@ -54,13 +58,18 @@ class PosePipeline:
     config.tracker.reid_weight > 0 the tracker's appearance embeddings come
     from that head, else from the pose-colour descriptor. device: None
     runs on the CUDA card and raises when there is none; "cpu" runs the
-    plain versions of the kernels. Constructing it sets the process-wide
-    numeric settings (core.set_numeric_settings: TF32 off, cuDNN
-    autotuning off)."""
+    plain versions of the kernels. dtype overrides the activations' type
+    of config.precision (the JAX runner's dtype=), e.g. int8 weights with
+    float32 activations. Constructing it sets the process-wide numeric
+    settings (core.set_numeric_settings: TF32 off, cuDNN autotuning off).
+
+    The parameters decide each conv's flavour, as in the JAX package:
+    precision="int8" with models.quant's calibrated parameters runs every
+    quantised conv as w8a8 through Kernel 4 (weights packed here, once)."""
 
     def __init__(self, config: PipelineConfig = PipelineConfig(),
                  params: dict | None = None, device=None,
-                 reid_params: dict | None = None):
+                 reid_params: dict | None = None, dtype=None):
         det_cfg, trk_cfg = config.detector, config.tracker
         if params is None:
             raise ValueError("params are required (models.load_params)")
@@ -73,9 +82,10 @@ class PosePipeline:
         self.config = config
         self.device = resolve_device(device)
         set_numeric_settings()
-        self.dtype = _DTYPES[config.precision]
+        self.dtype = _DTYPES[config.precision] if dtype is None else dtype
         self.family = MODEL_CONFIGS[config.model_name].family
-        self.params = self._device_params(fold_stem_preprocess(params))
+        self.params = prepare_params(fold_stem_preprocess(params),
+                                     self.dtype, self.device)
         self.reid_params = None if reid_params is None else {
             k: torch.as_tensor(np.asarray(v, np.float32)).to(self.device)
             for k, v in reid_params.items()}
@@ -86,16 +96,6 @@ class PosePipeline:
         self.state = TrackerState.init(trk_cfg.max_tracks,
                                        trk_cfg.max_detections, self.device)
         self.timing = {"dispatch_ms": 0.0, "frames": 0}
-
-    def _device_params(self, params: dict) -> dict:
-        out = {}
-        for k, v in params.items():
-            t = torch.as_tensor(np.asarray(v, np.float32)).to(
-                self.device, self.dtype)
-            if t.dim() == 4:
-                t = t.contiguous(memory_format=torch.channels_last)
-            out[k] = t
-        return out
 
     def _detect(self, params, frames_flat: torch.Tensor, h: int, w: int,
                 selection: bool):

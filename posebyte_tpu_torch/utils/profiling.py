@@ -3,6 +3,7 @@
     python -m posebyte_tpu_torch.utils.profiling [--frames 32]
     python -m posebyte_tpu_torch.utils.profiling --chunk 128 [--frames 256]
     ... [--reid off|descriptor|head] [--motion cv|kalman136]
+    ... [--precision bf16|int8]
 
 Runs PosePipeline (yolov8n-pose, 640 input, bf16, raw u8 ingest; the
 trained 640 checkpoint) on synthetic 1280x720 frames: each frame through
@@ -13,8 +14,11 @@ with --chunk both count whole chunks (by default one warm-up chunk and two
 timed ones). --reid runs the tracker with Re-ID (reid_weight 0.3): the
 pose-colour descriptor, or the learned head of
 assets/reid-head-synthetic.safetensors. --motion picks the tracker's motion
-model (the cv filter, or the third-order kalman136). Prints JSON lines,
-every number per frame:
+model (the cv filter, or the third-order kalman136). --precision int8
+runs the w8a8 path: the checkpoint quantised with PARTIAL_QUANT_SKIP and
+calibrated by percentile on the card over 16 synthetic-scene frames at 640
+(models/quant.py), every quantised conv through Kernel 4. Prints JSON
+lines, every number per frame:
   steady      host wall ms per frame with the profiler off
   stages      per pipeline stage (the profiler labels of runner.py: ingest,
               letterbox, model, decode, nms, reid, tracker, outputs, fetch):
@@ -22,7 +26,8 @@ every number per frame:
               per frame, from torch.profiler
   device      device busy ms per frame (sum of kernel and copy times), device
               operations per frame, and the idle share 1 - busy / wall,
-              against the profiled and the unprofiled wall time
+              against the profiled and the unprofiled wall time; Kernel
+              4's device ms per frame (int8)
   kernels     the ten kernels with the most device time per frame
 Device numbers come only from the profiler's CUDA activity; where it
 records none they print as null ("not measured").
@@ -78,6 +83,8 @@ def main(argv=None) -> int:
                     default="off", help="appearance Re-ID (reid_weight 0.3)")
     ap.add_argument("--motion", choices=("cv", "kalman136"), default="cv",
                     help="the tracker's motion model")
+    ap.add_argument("--precision", choices=("bf16", "int8"), default="bf16",
+                    help="int8: the w8a8 path through Kernel 4")
     args = ap.parse_args(argv)
     unit = args.chunk or 1
     if args.frames is None:
@@ -93,9 +100,15 @@ def main(argv=None) -> int:
         os.path.abspath(__file__))))
     params, _ = load_params(os.path.join(
         root, "assets", "yolov8n-pose-synthetic640.safetensors"))
-    cfg = PipelineConfig(tracker=TrackerConfig(
+    cfg = PipelineConfig(precision=args.precision, tracker=TrackerConfig(
         motion_model=args.motion,
         reid_weight=0.0 if args.reid == "off" else 0.3))
+    if args.precision == "int8":
+        from ..models import quant
+        from .synthetic import calibration_frames
+        params = quant.calibrate_activations(
+            quant.quantize_params(params), cfg.model_name,
+            calibration_frames(16, 640, seed=7))
     reid_params = None
     if args.reid == "head":
         reid_params = load_reid_head(os.path.join(
@@ -116,6 +129,7 @@ def main(argv=None) -> int:
     print(json.dumps({"phase": "steady", "frames": args.frames,
                       "chunk": args.chunk, "reid": args.reid,
                       "motion": args.motion,
+                      "precision": args.precision,
                       "wall_ms_per_frame": wall,
                       "card": torch.cuda.get_device_name(0)}), flush=True)
 
@@ -158,7 +172,10 @@ def main(argv=None) -> int:
         "device_ops_per_chunk":
             count / n * args.chunk if measured and args.chunk else None,
         "idle_share_profiled": 1.0 - busy / prof_wall if measured else None,
-        "idle_share_steady": 1.0 - busy / wall if measured else None}),
+        "idle_share_steady": 1.0 - busy / wall if measured else None,
+        "conv_int8_ms_per_frame": sum(
+            ms for k, ms in per_kernel.items() if "conv_int8" in k) / n
+        if measured else None}),
         flush=True)
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:10]
     print(json.dumps({"phase": "kernels", "top_device_ms_per_frame": [

@@ -221,3 +221,16 @@ def render_frame(poses: np.ndarray, width: int, height: int,
         color = (60 + (60 * i) % 196, 200, 255 - (50 * i) % 200)
         draw_pose(frame, pose, color)
     return frame
+
+
+def calibration_frames(n: int, size: int, n_persons: int = 6,
+                       seed: int = 0) -> np.ndarray:
+    """n consecutive frames of a synthetic scene rendered at the model's
+    input size, as int8 activation calibration takes them
+    (models.quant.calibrate_activations): [n, size, size, 3] float32, RGB,
+    scaled to 0..1."""
+    scene = SyntheticScene(n_persons, size, size, seed=seed)
+    frames = np.stack([render_frame(scene.step(), size, size)
+                       for _ in range(n)])
+    return np.ascontiguousarray(frames[..., ::-1], np.float32) / \
+        np.float32(255.0)

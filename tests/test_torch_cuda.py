@@ -14,7 +14,16 @@ integer outputs and state equal, floats within 1e-5 px + 1e-6 relative
 float equal too; the per-frame and the chunk pipeline on the card against
 the CPU in fp32 within 1e-2 px with equal track ids (cuDNN and oneDNN sum
 the convolutions in different orders), with and without Re-ID, with either
-motion model.
+motion model. Kernel 4 against its plain version on the card: the int32
+sums and the bf16 and float32 outputs equal. The int8 pipeline (float32
+activations) on the card against the CPU: ids equal, keypoints within 8 px
+with a median difference within 0.5 px (2.2 and 0.32 px measured on an
+H100): the float convolutions of cuDNN and oneDNN differ ~1e-6 relative,
+which moves a few activations across a rounding boundary of the next
+quantisation, and one int8 step of a head activation moves a keypoint by
+up to ~4 px at stride 32; Kernel 4 itself is equal to its plain version on
+every shape, and the activation quantisation on the card to the CPU's on
+the same float inputs, ties included.
 """
 import os
 
@@ -507,3 +516,117 @@ def test_kalman_pipeline_card_matches_cpu(card, reid):
         torch.testing.assert_close(getattr(pipes[1].state, f).cpu(),
                                    getattr(pipes[0].state, f), rtol=0,
                                    atol=1e-2)
+
+
+@pytest.mark.parametrize("k,stride", [(3, 1), (3, 2), (1, 1)])
+@pytest.mark.parametrize("B,H,W,C,O,bias", [
+    (2, 8, 8, 128, 128, False),       # the JAX kernel test's shape
+    (1, 80, 80, 51, 51, True),        # the keypoint head's ragged widths
+    (1, 20, 20, 256, 1, True),        # the confidence head's one channel
+    (4, 40, 40, 64, 130, True)])      # ragged output tiles, a batch
+def test_conv_int8_kernel_matches_plain(card, k, stride, B, H, W, C, O,
+                                        bias):
+    """Kernel 4 (each instantiation) against its plain version on the card
+    (an exact float64 convolution): int32 sums, bf16 and float32 outputs
+    equal bit for bit; one launch per call."""
+    from posebyte_tpu_torch.ops import conv_int8 as CI
+    rng = np.random.default_rng(B * H + C + O)
+    x = torch.from_numpy(rng.normal(0, 40, (B, C, H, W)).astype(np.float32))
+    xq = CI.quantize_activation(x.to(card), torch.tensor(1.0, device=card))
+    wq = CI.pack_weights(torch.from_numpy(rng.integers(
+        -127, 128, (O, C, k, k)).astype(np.int8)).to(card))
+    scale = torch.from_numpy(rng.uniform(1e-4, 1e-2, O).astype(
+        np.float32)).to(card)
+    b = torch.from_numpy(rng.normal(0, 1, O).astype(np.float32)).to(card) \
+        if bias else None
+    for dtype in (torch.int32, torch.bfloat16, torch.float32):
+        before = CI.conv_int8_cuda.launches
+        got = CI.conv_int8(xq, wq, scale, b, k, stride, dtype)
+        assert CI.conv_int8_cuda.launches == before + 1
+        want = CI.conv_int8_plain(xq, wq, scale, b, k, stride, dtype)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape and got.dtype == dtype
+        assert torch.equal(got.contiguous().view(-1).view(torch.int16)
+                           if dtype == torch.bfloat16 else got,
+                           want.contiguous().view(-1).view(torch.int16)
+                           if dtype == torch.bfloat16 else want)
+
+
+@pytest.mark.parametrize("s_x", [0.05, 0.012852498, 0.10032497])
+def test_quantize_activation_card_matches_cpu_with_ties(card, s_x):
+    """clamp(round(x / s_x)) half to even on the card, equal to the CPU's
+    and to numpy's float32 arithmetic on the same inputs: values at
+    (n + 0.5) * s_x, beyond the clamp, of both signs, float32 and bf16.
+    The card divides by the 0-d device tensor; a multiplication by the
+    reciprocal, as ATen does for a CPU scalar divisor, would move ties."""
+    from posebyte_tpu_torch.ops import conv_int8 as CI
+    rng = np.random.default_rng(3)
+    s = np.float32(s_x)
+    n = rng.integers(-140, 140, (2, 51, 6, 7)).astype(np.float32)
+    x = ((n + np.float32(0.5)) * s).astype(np.float32)
+    x[:, ::4] = rng.normal(0, 40 * s, x[:, ::4].shape)
+    r = np.round(x / s)
+    assert (r != np.floor(x / s + np.float32(0.5))).sum() > 50
+    for dtype in (torch.float32, torch.bfloat16):
+        xt = torch.from_numpy(x).to(dtype).contiguous(
+            memory_format=torch.channels_last)
+        xf = xt.float().numpy()
+        want = np.transpose(np.clip(np.round(xf / s), -127, 127)
+                            .astype(np.int8), (0, 2, 3, 1))
+        cpu = CI.quantize_activation(xt, torch.tensor(s))
+        gpu = CI.quantize_activation(xt.to(card),
+                                     torch.tensor(s, device=card)).cpu()
+        assert torch.equal(gpu, cpu)
+        np.testing.assert_array_equal(gpu[..., :51].numpy(), want)
+        assert not gpu[..., 51:].any()
+
+
+def test_int8_pipeline_card_matches_cpu(card):
+    """The w8a8 pipeline (yolov8n-pose 256, quantised and calibrated by the
+    port on the CPU) with float32 activations on the card against the CPU:
+    a chunk of K = 8 and 4 per-frame frames; ids equal, keypoints within
+    the bars of the module's docstring; Kernel 4 launched once per
+    quantised conv (59 per frame and per chunk)."""
+    from posebyte_tpu_torch.core import DetectorConfig, PipelineConfig
+    from posebyte_tpu_torch.models import load_params
+    from posebyte_tpu_torch.models import quant as Q
+    from posebyte_tpu_torch.ops import conv_int8 as CI
+    from posebyte_tpu_torch.pipeline import PosePipeline
+    from posebyte_tpu_torch.utils.synthetic import SyntheticScene, \
+        calibration_frames, render_frame
+
+    asset = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "assets",
+        "yolov8n-pose-synthetic256.safetensors")
+    qparams = Q.calibrate_activations(
+        Q.quantize_params(load_params(asset)[0]), "yolov8n-pose",
+        calibration_frames(16, 256, seed=1), device="cpu")
+    cfg = PipelineConfig(detector=DetectorConfig(input_size=256,
+                                                 num_anchors=1344),
+                         precision="int8")
+    pipes = [PosePipeline(cfg, qparams, device=d, dtype=torch.float32)
+             for d in ("cpu", card)]
+    scene = SyntheticScene(4, 1280, 720, seed=11)
+    frames = np.stack([render_frame(scene.step(), 1280, 720)
+                       for _ in range(12)])
+
+    diffs = []
+
+    def same(cpu, gpu):
+        assert [t.track_id for t in gpu] == [t.track_id for t in cpu]
+        for x, y in zip(gpu, cpu):
+            diffs.append(np.abs(x.keypoints[:, :2] - y.keypoints[:, :2]))
+
+    before = CI.conv_int8_cuda.launches
+    cpu, gpu = (p.fetch_chunk_outputs(p.process_chunk(frames[:8]), 1280,
+                                      720) for p in pipes)
+    for a, b in zip(cpu, gpu):
+        same(a, b)
+    assert CI.conv_int8_cuda.launches - before == 59
+    assert len(gpu[-1]) >= 3
+    for fr in frames[8:]:
+        same(*(p.fetch_outputs(p.process_frame(fr), 1280, 720)
+               for p in pipes))
+    assert CI.conv_int8_cuda.launches - before == 59 * 5
+    d = np.concatenate([x.ravel() for x in diffs])
+    assert d.max() <= 8.0 and np.median(d) <= 0.5

@@ -6,8 +6,8 @@ This holds the kernels' logic -- thread mapping, shared-memory layout,
 barriers and uniform loop exits, tie rules -- on a host without a card.
 Each emulated launch runs in a child process with a time limit, so a
 barrier that not every thread reaches fails the test instead of hanging
-it. Tolerance: none for keep masks, assignments and the tracker's
-integers; tracker floats within 1e-4 px (see assert_tracker_equal), except
+it. Tolerance: none for keep masks, assignments, the tracker's integers
+and Kernel 4's int8 convolution (int32 sums, bf16 and float32 outputs); tracker floats within 1e-4 px (see assert_tracker_equal), except
 the kalman136 filter's mean and covariance, which must be equal (their
 arithmetic holds no expf). Needs g++ with C++20; the card itself is tested
 in tests/test_torch_cuda.py.
@@ -24,6 +24,7 @@ import pytest
 import torch
 
 from posebyte_tpu_torch.ops import assignment as A
+from posebyte_tpu_torch.ops import conv_int8 as CI
 from posebyte_tpu_torch.ops import cuda_lib
 from posebyte_tpu_torch.core.config import TrackerConfig
 from posebyte_tpu_torch.core.structs import Detections, TrackerState
@@ -59,6 +60,23 @@ if sys.argv[2] == "nms":
         d["valid"].ctypes.data, keep.ctypes.data, B, n, float(d["iou"]),
         float(d["oks"]), d["sig4"].ctypes.data, None)
     np.savez(sys.argv[4], status=st, keep=keep)
+elif sys.argv[2] == "conv":
+    # one launch per row (k, stride, out_type) of cfg, on the same inputs
+    B, H, W, Cp = d["x"].shape
+    O = d["scale"].shape[0]
+    outs = {}
+    for i, (k, stride, out_type) in enumerate(d["cfg"].tolist()):
+        w = d[f"w{k}"]
+        Ho, Wo = ((n + 2 * (k // 2) - k) // stride + 1 for n in (H, W))
+        out = np.zeros((B, Ho, Wo, O),
+                       (np.uint16, np.float32, np.int32)[out_type])
+        st = fn("posebyte_conv_int8")(
+            d["x"].ctypes.data, w.ctypes.data, d["scale"].ctypes.data,
+            d["bias"].ctypes.data if "bias" in d else None, out.ctypes.data,
+            B, H, W, Cp, O, w.shape[0], k, stride, out_type, None)
+        assert st == 0, st
+        outs[f"out{i}"] = out
+    np.savez(sys.argv[4], status=0, **outs)
 elif sys.argv[2] == "auction":
     B, R, C = d["cost"].shape
     row = np.zeros((B, R), np.int32)
@@ -291,10 +309,11 @@ def test_tracker_kernel_source_matches_plain(emulated, seed, K, T, D,
         assert int(want_outs["num_active"].max()) == T   # the pool is full
 
 
-def _mutant(emulated, tmp_path, old, new):
-    """The emulated library with Kernel 3's source mutated (old -> new)."""
+def _mutant(emulated, tmp_path, old, new, source="tracker_chunk.cu"):
+    """The emulated library with a kernel's source (Kernel 3's unless
+    named) mutated (old -> new)."""
     _, out = emulated
-    with open(os.path.join(cuda_lib.CSRC, "tracker_chunk.cu")) as f:
+    with open(os.path.join(cuda_lib.CSRC, source)) as f:
         src = _to_cpp(f.read())
     bad = src.replace(old, new)
     assert bad != src
@@ -436,3 +455,84 @@ def test_tracker_kernel_kalman_mutation_is_caught(emulated, tmp_path, old,
                   **tracker_inputs(state, dets, cfg, advance))
     with pytest.raises(AssertionError):
         assert_tracker_equal(got, want_state, want_outs)
+
+
+def conv_case(seed, B, H, W, C, O, bias=True):
+    """Kernel 4's inputs as the pipeline gives them: int8 activations
+    quantised and channel-padded, packed int8 weights for k = 3 and 1,
+    scale (and bias)."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.normal(0, 40, (B, C, H, W)).astype(np.float32))
+    xq = CI.quantize_activation(x, torch.tensor(1.0))
+    wq = {k: CI.pack_weights(rng.integers(-127, 128, (O, C, k, k))
+                             .astype(np.int8)) for k in (3, 1)}
+    scale = torch.from_numpy(rng.uniform(1e-4, 1e-2, O).astype(np.float32))
+    b = torch.from_numpy(rng.normal(0, 1, O).astype(np.float32)) \
+        if bias else None
+    return xq, wq, scale, b
+
+
+DTYPES = (torch.int32, torch.bfloat16, torch.float32)
+
+
+def _conv_launch(lib, case, runs):
+    """Emulated Kernel 4 on `case` for each (k, stride, dtype) of runs, in
+    one child process -> the outputs [B, Ho, Wo, O]."""
+    xq, wq, scale, bias = case
+    inputs = dict(x=xq.numpy(), w3=wq[3].numpy(), w1=wq[1].numpy(),
+                  scale=scale.numpy(),
+                  cfg=np.array([(k, s, CI._OUT_DTYPES.index(dt))
+                                for k, s, dt in runs]))
+    if bias is not None:
+        inputs["bias"] = bias.numpy()
+    res = _launch(lib, "conv", **inputs)
+    outs = []
+    for i, (_, _, dt) in enumerate(runs):
+        out = torch.from_numpy(res[f"out{i}"])
+        outs.append(out.view(torch.bfloat16) if dt == torch.bfloat16
+                    else out)
+    return outs
+
+
+def _conv_equal(got, case, k, stride, dtype):
+    xq, wq, scale, bias = case
+    want = CI.conv_int8_plain(xq, wq[k], scale, bias, k, stride, dtype) \
+        .permute(0, 2, 3, 1).contiguous()
+    if dtype == torch.bfloat16:
+        return torch.equal(got.view(torch.int16), want.view(torch.int16))
+    return torch.equal(got, want)
+
+
+@pytest.mark.parametrize("B,H,W,C,O,bias", [
+    (1, 9, 7, 51, 51, True),       # ragged channels, a ragged pixel tile
+    (2, 8, 8, 128, 128, False),    # the JAX kernel test's shape (3x3, s1)
+    (1, 6, 5, 64, 1, True),        # the confidence head's one channel
+    (3, 12, 12, 32, 70, True),     # several pixel tiles, two channel tiles
+])
+def test_conv_kernel_source_matches_plain(emulated, B, H, W, C, O, bias):
+    """Kernel 4, all three instantiations, against its plain version: the
+    int32 sums and the bf16 and float32 epilogues, bit for bit."""
+    case = conv_case(B * 1000 + C + O, B, H, W, C, O, bias)
+    runs = [(k, s, dt) for k, s in CI.SHAPES for dt in DTYPES]
+    for (k, s, dt), got in zip(runs, _conv_launch(emulated, case, runs)):
+        assert _conv_equal(got, case, k, s, dt), (k, s, dt)
+
+
+@pytest.mark.parametrize("old,new,dtype", [
+    # the last reduction step is dropped
+    ("step < steps; ++step", "step < steps - 1; ++step", torch.int32),
+    # the taps' rows and columns swapped (a transposed 3x3 kernel)
+    ("ix = ix0 + tap % KS", "ix = ix0 + tap / KS", torch.int32),
+    # the bias is left out of the epilogue
+    ("if (bias != nullptr) v = v + bias[n];", "", torch.bfloat16),
+    # the bf16 rounding truncates instead of rounding to nearest even
+    ("(u + 0x7fffu + ((u >> 16) & 1u)) >> 16", "u >> 16", torch.bfloat16),
+])
+def test_conv_kernel_mutation_is_caught(emulated, tmp_path, old, new,
+                                        dtype):
+    """Kernel 4 with one of these faults must disagree with its plain
+    version: the comparison above can fail."""
+    mutant = _mutant(emulated, tmp_path, old, new, source="conv_int8.cu")
+    case = conv_case(7, 1, 9, 7, 51, 51)
+    got, = _conv_launch(mutant, case, [(3, 1, dtype)])
+    assert not _conv_equal(got, case, 3, 1, dtype)

@@ -73,8 +73,7 @@ def test_card_is_the_default_device():
 
 def test_pipeline_rejects_unported_options():
     params = load_params(ASSET)[0]
-    for cfg in (PipelineConfig(precision="int8"),
-                PipelineConfig(detector=DetectorConfig(raw_preproc=False)),
+    for cfg in (PipelineConfig(detector=DetectorConfig(raw_preproc=False)),
                 PipelineConfig(detector=DetectorConfig(decode_fusion="tail"))):
         with pytest.raises(NotImplementedError):
             PosePipeline(cfg, params=params, device="cpu")
