@@ -64,36 +64,42 @@ Phases, each printing one JSON line with its elapsed seconds:
                scales by percentile calibration on the card over 16
                synthetic-scene frames rendered at 640
   int8_kernels Kernel 4 against its plain version on the card (an exact
-               float64 convolution): int32 sums and bf16 outputs bit for
-               bit at the JAX kernel test's shape, at every distinct shape
-               the int8 path gives Kernel 4 for one frame (B = 1, its own
-               inputs, recorded by wrapping ops.conv_int8.conv_int8_cuda
-               around one forward), and at every one of those shapes at
-               B = 128; each distinct shape timed at B = 128
-               (kernel, plain version, bound, and two yardsticks the port
-               never calls: cuDNN's bf16 conv of the same shape and
-               torch._int_mm on the im2col'd input), summed per chunk
+               float64 convolution) in both modes (int8 input; float
+               input quantised in its load, the path's): int32 sums and
+               bf16 outputs bit for bit at the JAX kernel test's shape, at
+               every distinct shape the int8 path gives Kernel 4 for one
+               frame (B = 1, its own inputs, recorded by wrapping
+               ops.conv_int8.conv_w8a8_cuda around one forward), and at
+               every one of those shapes at B = 128 in the path's layout;
+               each distinct shape timed at B = 128 in both modes (kernel,
+               plain version, the bound of each mode, and three yardsticks
+               the port never calls: the two-pass route, eager
+               quantize_activation then the int8 mode; cuDNN's bf16 conv
+               of the same shape; torch._int_mm on the im2col'd input),
+               summed per chunk
   int8_main_path   the per-frame path at int8 on the card, bf16
                activations, 16 frames: launches per frame conv_int8 59,
-               nms_keep 1, auction 3
+               nms_keep 1, auction 3, and no call of quantize_activation
   int8_chunk_path  the chunk path at int8, K = 128: one warm-up and two
                timed chunks, launches per chunk conv_int8 59, nms_keep 1,
-               tracker_chunk 1, auction 0; frames/s
+               tracker_chunk 1, auction 0, no quantize_activation;
+               frames/s
   int8_cpu_vs_card int8 with float32 activations, a chunk of K = 8 and 4
                per-frame frames on the CPU and on the card: track ids
                equal, keypoints within 8 px and their median difference
                within 0.5 px (INT8_KP_MAX_PX says why); and on these
-               frames the activation quantisation on the card equal to the
-               CPU's on values at (n + 0.5) * s_x for every calibrated s_x
-               and on the float inputs the CPU computed for every int8
-               conv, with the int8 activations that differ when each
-               device computes its own float inputs counted per conv and
-               frame
+               frames the quantisation in Kernel 4's load (read back by a
+               1x1 identity conv in int32 mode) equal to the CPU's on
+               values at (n + 0.5) * s_x for every calibrated s_x and on
+               the float inputs the CPU computed for every int8 conv, with
+               the int8 activations that differ when each device computes
+               its own float inputs counted per conv and frame
 Each path's launch counts are set to 0 just before it runs and read just
 after. Then a line {"kernels": [...]} with each kernel's launches (summed
 over the paths' runs), error, times and bound (the tracker chunk's also
 with Re-ID and with kalman136, and the variants it was held in; Kernel 4's
-per chunk of the int8 path, with its instantiations and yardsticks), and
+per chunk of the int8 path, its float mode as "ms" and its int8 mode
+beside it, with its instantiations and yardsticks), and
 last {"ok": true, "device": {...}}. Any failure raises and exits non-zero
 before that line; a hang is cut by faulthandler.
 """
@@ -194,14 +200,15 @@ def auction_case(rng, R=128, C=64):
     return cost.astype(np.float32), active
 
 
-def conv_int8_work(B, H, W, C, O, k, stride, bias=True):
-    """(bytes, int8 operations) of one int8 convolution: the activation
-    [B, H, W, C] and the weights [k, k, C, O] int8 read once, scale (and
-    bias) float32 read once, the bf16 output written once; a multiply and
-    an add per tap, input channel and output element."""
+def conv_int8_work(B, H, W, C, O, k, stride, bias=True, in_bytes=1):
+    """(bytes, int8 operations) of one w8a8 convolution: the activation
+    [B, H, W, C] (in_bytes per element: 1 for Kernel 4's int8 mode, 2 for
+    its float mode on bf16) and the weights [k, k, C, O] int8 read once,
+    scale (and bias) float32 read once, the bf16 output written once; a
+    multiply and an add per tap, input channel and output element."""
     Ho, Wo = (H + 2 * (k // 2) - k) // stride + 1, \
         (W + 2 * (k // 2) - k) // stride + 1
-    nbytes = (B * H * W * C + k * k * C * O + 4 * O * (1 + bias)
+    nbytes = (in_bytes * B * H * W * C + k * k * C * O + 4 * O * (1 + bias)
               + 2 * B * Ho * Wo * O)
     return nbytes, 2 * k * k * C * B * Ho * Wo * O
 
@@ -1137,50 +1144,74 @@ def phase_int8_calibration(t0, params):
 
 def int8_conv_calls(pipe):
     """The Kernel 4 calls of one frame of the int8 path, in order:
-    [(key, k, stride, xq, wq, scale, bias)], recorded by wrapping
-    ops.conv_int8.conv_int8_cuda around one forward of a synthetic frame;
-    the wrapper is removed after."""
+    [(key, k, stride, x, s_x, wq, scale, bias)] with x the float input as
+    the model gives it, recorded by wrapping ops.conv_int8.conv_w8a8_cuda
+    around one forward of a synthetic frame; the wrapper is removed after."""
     import torch
     from posebyte_tpu_torch.models.yolo_pose import forward_heads
     from posebyte_tpu_torch.ops import conv_int8 as CI
     from posebyte_tpu_torch.ops.preprocess import letterbox_flat_nhwc
     keys = {id(v): k[:-3] for k, v in pipe.params.items()
             if k.endswith(".wq")}
-    calls, kernel = [], CI.conv_int8_cuda
+    calls, kernel = [], CI.conv_w8a8_cuda
 
-    def record(xq, wq, scale, bias, k, stride, out_dtype=torch.bfloat16):
-        calls.append((keys[id(wq)], k, stride, xq, wq, scale, bias))
-        return kernel(xq, wq, scale, bias, k, stride, out_dtype)
+    def record(x, s_x, wq, scale, bias, k, stride, out_dtype=None):
+        calls.append((keys[id(wq)], k, stride, x, s_x, wq, scale, bias))
+        return kernel(x, s_x, wq, scale, bias, k, stride, out_dtype)
 
     _, frames = make_frames(1)
-    record.launches = 0          # the kernel counts its launch here
-    CI.conv_int8_cuda = record
+    CI.conv_w8a8_cuda = record
     try:
         with torch.inference_mode():
             flat = pipe.prestage_frame(frames[0])
             img = letterbox_flat_nhwc(flat[None], WIDTH, HEIGHT, LETTERBOX)
             forward_heads(pipe.params, img.to(pipe.dtype), pipe.family)
     finally:
-        CI.conv_int8_cuda = kernel
+        CI.conv_w8a8_cuda = kernel
     return calls
 
 
+def _mismatches(got, want):
+    """(elements that differ, max abs difference) of two outputs of one
+    type; bf16 and float32 compared by their bits."""
+    import torch
+    torch.cuda.synchronize()
+    if got.dtype == torch.int32:
+        return int((got != want).sum()), float((got - want).abs().max())
+    g, w = got.float(), want.float()
+    return (int((g.view(torch.int32) != w.view(torch.int32)).sum()),
+            float((g - w).abs().max()))
+
+
 def conv_mismatches(xq, wq, scale, bias, k, stride):
-    """(int32 sums, bf16 outputs) of Kernel 4 against its plain version:
-    (mismatched elements, max abs difference of the bf16 outputs)."""
+    """Kernel 4's int8 mode against its plain version, int32 sums and bf16
+    outputs: (mismatched elements, max abs difference of the bf16
+    outputs)."""
     import torch
     from posebyte_tpu_torch.ops import conv_int8 as CI
     mism, err = 0, 0.0
     for dtype in (torch.int32, torch.bfloat16):
-        got = CI.conv_int8_cuda(xq, wq, scale, bias, k, stride, dtype)
-        want = CI.conv_int8_plain(xq, wq, scale, bias, k, stride, dtype)
-        torch.cuda.synchronize()
-        if dtype == torch.bfloat16:
-            mism += int((got.float().view(torch.int32)
-                         != want.float().view(torch.int32)).sum())
-            err = max(err, float((got.float() - want.float()).abs().max()))
-        else:
-            mism += int((got != want).sum())
+        m, e = _mismatches(
+            CI.conv_int8_cuda(xq, wq, scale, bias, k, stride, dtype),
+            CI.conv_int8_plain(xq, wq, scale, bias, k, stride, dtype))
+        mism += m
+        err = max(err, e) if dtype == torch.bfloat16 else err
+    return mism, err
+
+
+def w8a8_mismatches(x, s_x, wq, scale, bias, k, stride):
+    """Kernel 4's float mode (x quantised in its load) against its plain
+    version, int32 sums and outputs in x's type: (mismatched elements, max
+    abs difference of the outputs in x's type)."""
+    import torch
+    from posebyte_tpu_torch.ops import conv_int8 as CI
+    mism, err = 0, 0.0
+    for dtype in (torch.int32, x.dtype):
+        m, e = _mismatches(
+            CI.conv_w8a8_cuda(x, s_x, wq, scale, bias, k, stride, dtype),
+            CI.conv_w8a8_plain(x, s_x, wq, scale, bias, k, stride, dtype))
+        mism += m
+        err = max(err, e) if dtype != torch.int32 else err
     return mism, err
 
 
@@ -1210,9 +1241,28 @@ def int_mm_ms(x, wq, k, stride, reps):
     return (min(ms), None) if ms else (None, why)
 
 
+def like_path_input(x, B, scale, dev):
+    """A float activation of the path's layout (pixel stride and channel
+    offset of the recorded input x, its dtype), B frames of normal values
+    of standard deviation `scale`."""
+    import torch
+    from posebyte_tpu_torch.ops.conv_int8 import pixel_stride
+    _, C, H, W = x.shape
+    ps = pixel_stride(x)
+    base = x.storage_offset() % ps if ps > C else 0
+    full = (torch.randn((B, H, W, ps), device=dev) * scale).to(x.dtype)
+    return full.permute(0, 3, 1, 2)[:, base:base + C]
+
+
+FIELDS = ("convs", "ms", "ms_int8_mode", "ms_two_pass", "plain_ms",
+          "plain_ms_int8_mode", "bytes", "bytes_int8_mode", "ops",
+          "cudnn_bf16_ms", "int_mm_ms")
+
+
 def phase_int8_kernels(t0, qparams, rows):
-    """Kernel 4 against its plain version on the card, and its times per
-    distinct shape of the int8 path at B = CHUNK, summed per chunk."""
+    """Kernel 4 against its plain version on the card in both modes, and
+    its times per distinct shape of the int8 path at B = CHUNK, summed per
+    chunk."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1221,55 +1271,65 @@ def phase_int8_kernels(t0, qparams, rows):
     from posebyte_tpu_torch.pipeline import PosePipeline
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
-    mism, err = 0, 0.0
+    mism, err = {"int8": 0, "float": 0}, 0.0
     cases = []
 
-    # the JAX kernel test's shape: B = 2, 8x8, C = O = 128, no bias
-    xq = CI.quantize_activation(torch.from_numpy(rng.integers(
-        -127, 128, (2, 128, 8, 8)).astype(np.float32)).to(dev),
-        torch.tensor(1.0, device=dev))
+    def check(name, x, s_x, wq, scale, bias, k, stride):
+        nonlocal err
+        mi, ei = conv_mismatches(CI.quantize_activation(x, s_x), wq, scale,
+                                 bias, k, stride)
+        mf, ef = w8a8_mismatches(x, s_x, wq, scale, bias, k, stride)
+        mism["int8"] += mi
+        mism["float"] += mf
+        err = max(err, ei, ef)
+        cases.append({"shape": name, "mismatches_int8_mode": mi,
+                      "mismatches_float_mode": mf})
+
+    # the JAX kernel test's shape: B = 2, 8x8, C = O = 128, no bias; the
+    # int8 values at s_x = 1, and as float inputs at s_x = 0.04 with ties
+    s_x = torch.tensor(0.04, device=dev)
+    n = rng.integers(-140, 140, (2, 128, 8, 8)).astype(np.float32)
+    x = torch.from_numpy((n + np.float32(0.5)) * np.float32(0.04)).to(
+        dev, torch.bfloat16).contiguous(memory_format=torch.channels_last)
     wq = CI.pack_weights(torch.from_numpy(rng.integers(
         -127, 128, (128, 128, 3, 3)).astype(np.int8)).to(dev))
     scale = torch.from_numpy(rng.uniform(0.001, 0.01, 128).astype(
         np.float32)).to(dev)
-    m, e = conv_mismatches(xq, wq, scale, None, 3, 1)
-    mism, err = mism + m, max(err, e)
-    cases.append({"shape": "jax_test B=2,8x8,C=O=128,k=3,s=1",
-                  "mismatches": m})
+    check("jax_test B=2,8x8,C=O=128,k=3,s=1", x, s_x, wq, scale, None, 3, 1)
 
     # every distinct shape of the int8 path, B = 1, its own inputs
     pipe = PosePipeline(PipelineConfig(precision="int8"), qparams)
     calls = int8_conv_calls(pipe)
     shapes = {}
-    for key, k, stride, xq, wq, scale, bias in calls:
-        _, H, W, Cp = xq.shape
-        C, O = qparams[key + ".w"].shape[1], scale.shape[0]
+    for key, k, stride, x, s_x, wq, scale, bias in calls:
+        _, C, H, W = x.shape
+        O = scale.shape[0]
         sk = (k, stride, H, W, C, O)
         if sk not in shapes:
             shapes[sk] = {"key": key, "count": 0,
-                          "args": (xq, wq, scale, bias)}
-            m, e = conv_mismatches(xq, wq, scale, bias, k, stride)
-            mism, err = mism + m, max(err, e)
-            cases.append({"shape": f"B=1,{H}x{W},C={C},O={O},k={k},"
-                                   f"s={stride}", "mismatches": m})
+                          "args": (x, s_x, wq, scale, bias)}
+            check(f"B=1,{H}x{W},C={C},O={O},k={k},s={stride}", x, s_x, wq,
+                  scale, bias, k, stride)
         shapes[sk]["count"] += 1
 
-    # each distinct shape at B = CHUNK: checked and timed
+    # each distinct shape at B = CHUNK in the path's layout: checked, timed
     per_shape, inst = [], {}
     for (k, stride, H, W, C, O), sh in shapes.items():
-        xq, wq, scale, bias = sh["args"]
-        Cp = xq.shape[-1]
-        x = torch.zeros((CHUNK, H, W, Cp), dtype=torch.int8, device=dev)
-        x[..., :C] = torch.randint(-127, 128, (CHUNK, H, W, C),
-                                   dtype=torch.int8, device=dev)
-        m, e = conv_mismatches(x, wq, scale, bias, k, stride)
-        mism, err = mism + m, max(err, e)
-        cases.append({"shape": f"B={CHUNK},{H}x{W},C={C},O={O},"
-                               f"k={k},s={stride}", "mismatches": m})
-        ms = cuda_ms(lambda: CI.conv_int8_cuda(x, wq, scale, bias, k,
+        x1, s_x, wq, scale, bias = sh["args"]
+        x = like_path_input(x1, CHUNK, 40 * float(s_x), dev)
+        xq = CI.quantize_activation(x, s_x)
+        check(f"B={CHUNK},{H}x{W},C={C},O={O},k={k},s={stride}", x, s_x,
+              wq, scale, bias, k, stride)
+        ms = cuda_ms(lambda: CI.conv_w8a8_cuda(x, s_x, wq, scale, bias, k,
                                                stride), 10)
-        plain = cuda_ms(lambda: CI.conv_int8_plain(x, wq, scale, bias, k,
-                                                   stride), 1)
+        ms_i8 = cuda_ms(lambda: CI.conv_int8_cuda(xq, wq, scale, bias, k,
+                                                  stride), 10)
+        two = cuda_ms(lambda: CI.conv_int8_cuda(CI.quantize_activation(
+            x, s_x), wq, scale, bias, k, stride), 10)
+        plain = cuda_ms(lambda: CI.conv_w8a8_plain(x, s_x, wq, scale, bias,
+                                                   k, stride), 1)
+        plain_i8 = cuda_ms(lambda: CI.conv_int8_plain(xq, wq, scale, bias,
+                                                      k, stride), 1)
         xb = torch.randn((CHUNK, C, H, W), device=dev).to(
             torch.bfloat16).contiguous(memory_format=torch.channels_last)
         wb = torch.randn((O, C, k, k), device=dev).to(
@@ -1277,74 +1337,101 @@ def phase_int8_kernels(t0, qparams, rows):
         bb = torch.randn(O, device=dev).to(torch.bfloat16)
         cudnn = cuda_ms(lambda: F.conv2d(xb, wb, bb, stride=stride,
                                          padding=k // 2), 10)
-        mm, mm_why = int_mm_ms(x, wq, k, stride, 10)
-        nbytes, ops = conv_int8_work(CHUNK, H, W, C, O, k, stride,
-                                     bias is not None)
-        b_ms, b_by = bound(nbytes, ops, INT8_OPS_S)
+        mm, mm_why = int_mm_ms(xq, wq, k, stride, 10)
+        work = [conv_int8_work(CHUNK, H, W, C, O, k, stride,
+                               bias is not None, in_bytes)
+                for in_bytes in (x.element_size(), 1)]
+        (b_ms, b_by), (b_i8, b_i8_by) = (bound(nb, op, INT8_OPS_S)
+                                         for nb, op in work)
         n = sh["count"]
         per_shape.append({
             "key": sh["key"], "k": k, "stride": stride, "H": H, "W": W,
-            "C": C, "Cp": Cp, "O": O, "count": n, "kernel_ms": ms,
-            "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-            "cudnn_bf16_ms": cudnn, "int_mm_ms": mm, "int_mm_refused": mm_why,
-            "tops": ops / ms / 1e9})
-        agg = inst.setdefault(f"{k}x{k}s{stride}", {
-            "convs": 0, "kernel_ms": 0.0, "plain_ms": 0.0, "bytes": 0,
-            "ops": 0, "cudnn_bf16_ms": 0.0, "int_mm_ms": 0.0,
-            "int_mm_shapes_refused": 0})
-        agg["convs"] += n
-        agg["kernel_ms"] += n * ms
-        agg["plain_ms"] += n * plain
-        agg["bytes"] += n * nbytes
-        agg["ops"] += n * ops
-        agg["cudnn_bf16_ms"] += n * cudnn
-        if mm is None:
-            agg["int_mm_shapes_refused"] += 1
-        else:
-            agg["int_mm_ms"] += n * mm
-        del x, xb
+            "C": C, "ps": CI.pixel_stride(x), "O": O, "count": n,
+            "tile_m": CI.tile_m(dev, CHUNK, (H - 1) // stride + 1,
+                                (W - 1) // stride + 1, O, patch=k == 3),
+            "ms": ms, "ms_int8_mode": ms_i8, "ms_two_pass": two,
+            "plain_ms": plain, "plain_ms_int8_mode": plain_i8,
+            "bound_ms": b_ms, "bound_by": b_by, "bound_ms_int8_mode": b_i8,
+            "bound_by_int8_mode": b_i8_by, "cudnn_bf16_ms": cudnn,
+            "int_mm_ms": mm, "int_mm_refused": mm_why,
+            "tops": work[0][1] / ms / 1e9,
+            "tops_int8_mode": work[0][1] / ms_i8 / 1e9})
+        agg = inst.setdefault(f"{k}x{k}s{stride}", dict.fromkeys(FIELDS, 0))
+        agg.setdefault("int_mm_shapes_refused", 0)
+        for f, v in (("convs", 1), ("ms", ms), ("ms_int8_mode", ms_i8),
+                     ("ms_two_pass", two), ("plain_ms", plain),
+                     ("plain_ms_int8_mode", plain_i8),
+                     ("bytes", work[0][0]), ("bytes_int8_mode", work[1][0]),
+                     ("ops", work[0][1]), ("cudnn_bf16_ms", cudnn),
+                     ("int_mm_ms", mm or 0.0)):
+            agg[f] += n * v
+        agg["int_mm_shapes_refused"] += mm is None
+        del x, xq, xb
     for agg in inst.values():
         agg["bound_ms"], agg["bound_by"] = bound(agg["bytes"], agg["ops"],
                                                  INT8_OPS_S)
-    total = {f: sum(a[f] for a in inst.values())
-             for f in ("convs", "kernel_ms", "plain_ms", "bytes", "ops",
-                       "cudnn_bf16_ms", "int_mm_ms")}
+        agg["bound_ms_int8_mode"], agg["bound_by_int8_mode"] = bound(
+            agg["bytes_int8_mode"], agg["ops"], INT8_OPS_S)
+    total = {f: sum(a[f] for a in inst.values()) for f in FIELDS}
     b_ms, b_by = bound(total["bytes"], total["ops"], INT8_OPS_S)
+    b_i8, b_i8_by = bound(total["bytes_int8_mode"], total["ops"], INT8_OPS_S)
     emit("int8_kernels", t0, cases=cases, mismatches=mism,
          max_abs_err=err, distinct_shapes=len(shapes),
          convs_per_frame=len(calls), shapes_b128=per_shape,
-         instantiations=inst, per_chunk={**total, "bound_ms": b_ms,
-                                         "bound_by": b_by})
+         instantiations=inst, per_chunk={
+             **total, "bound_ms": b_ms, "bound_by": b_by,
+             "bound_ms_int8_mode": b_i8, "bound_by_int8_mode": b_i8_by})
     rows["conv3x3_int8"] = {
         "name": "conv3x3_int8", "route": "cuda",
         "source": "posebyte_tpu_torch/csrc/conv_int8.cu",
         "replaces": "posebyte_tpu/ops/pallas_conv.py:56",
         "mismatches": mism, "max_abs_err": err, "launches": 0,
-        "ms": total["kernel_ms"], "ms_per_frame": total["kernel_ms"] / CHUNK,
+        "ms": total["ms"], "ms_per_frame": total["ms"] / CHUNK,
         "plain_ms": total["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None,
+        "ms_int8_mode": total["ms_int8_mode"],
+        "plain_ms_int8_mode": total["plain_ms_int8_mode"],
+        "bound_ms_int8_mode": b_i8, "bound_by_int8_mode": b_i8_by,
+        "yardstick_two_pass_ms": total["ms_two_pass"],
         "yardstick_cudnn_bf16_ms": total["cudnn_bf16_ms"],
         "yardstick_int_mm_ms": total["int_mm_ms"],
         "instantiations": {n: {f: a[f] for f in (
-            "convs", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
-            "cudnn_bf16_ms", "int_mm_ms", "int_mm_shapes_refused")}
+            "convs", "ms", "ms_int8_mode", "ms_two_pass", "plain_ms",
+            "bound_ms", "bound_by", "bound_ms_int8_mode", "cudnn_bf16_ms",
+            "int_mm_ms", "int_mm_shapes_refused")}
             for n, a in inst.items()},
         "shape": f"the int8 path's {len(calls)} convolutions per frame at "
-                 f"B={CHUNK} (one chunk)"}
-    if mism or len(calls) != 59:
+                 f"B={CHUNK} (one chunk), bf16 input for the float mode"}
+    if mism["int8"] or mism["float"] or len(calls) != 59 \
+            or len(cases) != 1 + 2 * len(shapes):
         raise SystemExit(f"Kernel 4: {mism} mismatches with its plain "
                          f"version, {len(calls)} calls per frame")
 
 
 def _int8_counts():
-    from posebyte_tpu_torch.ops.conv_int8 import conv_int8_cuda
-    return {**_kernel_counts(), "conv_int8": conv_int8_cuda}
+    """The launch counts of the int8 paths, with "eager_quantize": the
+    calls of ops.conv_int8.quantize_activation (wrapped here once with a
+    count), which the card's int8 path must not make: it quantises in
+    Kernel 4's load."""
+    from posebyte_tpu_torch.ops import conv_int8 as CI
+    if not hasattr(CI.quantize_activation, "launches"):
+        quantize = CI.quantize_activation
+
+        def counted(x, s_x):
+            counted.launches += 1
+            return quantize(x, s_x)
+
+        counted.launches = 0
+        CI.quantize_activation = counted
+    return {**_kernel_counts(), "conv_int8": CI.conv_int8_cuda,
+            "eager_quantize": CI.quantize_activation}
 
 
 def phase_int8_main_path(t0, qparams, rows):
     """The per-frame path at int8 (bf16 activations): FRAMES frames
     through process_frame + fetch_outputs; launches per frame conv_int8
-    59, nms_keep 1, auction 3; tracks within 10 px of the people."""
+    59, nms_keep 1, auction 3, no eager quantisation; tracks within 10 px
+    of the people."""
     import numpy as np
     from posebyte_tpu_torch.core import PipelineConfig
     from posebyte_tpu_torch.pipeline import PosePipeline
@@ -1369,10 +1456,11 @@ def phase_int8_main_path(t0, qparams, rows):
          last_frame_kp_err_px=errs)
     rows["conv3x3_int8"]["launches"] = launches["conv_int8"]
     for k, r in rows.items():
-        if k != "conv3x3_int8":
+        if k in launches and k != "conv3x3_int8":
             r["launches"] += launches[k]
     if launches != {"nms_keep": FRAMES, "auction": 3 * FRAMES,
-                    "tracker_chunk": 0, "conv_int8": 59 * FRAMES}:
+                    "tracker_chunk": 0, "conv_int8": 59 * FRAMES,
+                    "eager_quantize": 0}:
         raise SystemExit(f"int8 per-frame launch counts {launches}")
     if max(errs) > 10.0:
         raise SystemExit(f"int8 tracks miss the synthetic people: {errs}")
@@ -1381,7 +1469,7 @@ def phase_int8_main_path(t0, qparams, rows):
 def phase_int8_chunk_path(t0, qparams, rows):
     """The chunk path at int8, K = CHUNK: one warm-up and TIMED_CHUNKS
     timed chunks; launches per chunk conv_int8 59, nms_keep 1,
-    tracker_chunk 1, auction 0; frames/s."""
+    tracker_chunk 1, auction 0, no eager quantisation; frames/s."""
     import numpy as np
     import torch
     from posebyte_tpu_torch.core import PipelineConfig
@@ -1416,22 +1504,39 @@ def phase_int8_chunk_path(t0, qparams, rows):
          peak_mem_mb=torch.cuda.max_memory_allocated() / 2**20)
     rows["conv3x3_int8"]["launches"] += launches["conv_int8"]
     for k, r in rows.items():
-        if k != "conv3x3_int8":
+        if k in launches and k != "conv3x3_int8":
             r["launches"] += launches[k]
     if any(c != {"nms_keep": 1, "auction": 0, "tracker_chunk": 1,
-                 "conv_int8": 59} for c in per_chunk):
+                 "conv_int8": 59, "eager_quantize": 0} for c in per_chunk):
         raise SystemExit(f"int8 chunk launch counts per chunk {per_chunk}")
     if max(errs) > 10.0:
         raise SystemExit(f"int8 chunk tracks miss the synthetic people: "
                          f"{errs}")
 
 
+def fused_quantize(x, s_x, _eye={}):
+    """The activation quantisation as Kernel 4's float mode computes it in
+    its load, read back through a 1x1 conv with identity weights and scale
+    1 in int32 mode: x [B, C, H, W] on the card -> int8 [B, H, W, C] on the
+    CPU."""
+    import torch
+    from posebyte_tpu_torch.ops import conv_int8 as CI
+    C = x.shape[1]
+    if C not in _eye:
+        _eye[C] = (CI.pack_weights(torch.eye(C, dtype=torch.int8)[
+            :, :, None, None].to(x.device)), torch.ones(C, device=x.device))
+    w, ones = _eye[C]
+    q = CI.conv_w8a8_cuda(x, s_x, w, ones, None, 1, 1, torch.int32)
+    return q.permute(0, 2, 3, 1).cpu().to(torch.int8)
+
+
 def int8_quant_witness(qparams, frames):
-    """The activation quantisation on the card against the CPU, with
-    float32 activations at LETTERBOX. Returns (ties checked, ties
-    mismatched, same-input mismatches, letterbox max abs difference,
-    {conv key: [int8 elements that differ, largest step]} in the forward's
-    order, [int8 elements that differ per frame]):
+    """The activation quantisation in Kernel 4's load on the card
+    (fused_quantize) against quantize_activation on the CPU, with float32
+    activations at LETTERBOX. Returns (ties checked, ties mismatched,
+    same-input mismatches, letterbox max abs difference, {conv key: [int8
+    elements that differ, largest step]} in the forward's order, [int8
+    elements that differ per frame]):
     - ties: x = float32((n + 0.5) * s_x), n in -140..139, for each
       calibrated s_x; the card, the CPU and numpy's float32
       clip(round_half_even(x / s_x)) must agree (the card must divide by
@@ -1446,9 +1551,10 @@ def int8_quant_witness(qparams, frames):
     from posebyte_tpu_torch.core import PipelineConfig
     from posebyte_tpu_torch.models import layers as L
     from posebyte_tpu_torch.models.yolo_pose import forward_heads
+    from posebyte_tpu_torch.ops.conv_int8 import quantize_activation
     from posebyte_tpu_torch.ops.preprocess import letterbox_flat_nhwc
     from posebyte_tpu_torch.pipeline import PosePipeline
-    quantize = L.quantize_activation
+    conv = L.conv_w8a8
     cfg = PipelineConfig(precision="int8")
     inputs, imgs = {}, {}
     for dev in ("cpu", "cuda"):
@@ -1457,11 +1563,11 @@ def int8_quant_witness(qparams, frames):
                 if k.endswith(".act_scale")}
         rec = inputs[dev] = {}
 
-        def record(x, s_x, keys=keys, rec=rec):
+        def record(x, s_x, *args, keys=keys, rec=rec):
             rec[keys[id(s_x)]] = (x, s_x)
-            return quantize(x, s_x)
+            return conv(x, s_x, *args)
 
-        L.quantize_activation = record
+        L.conv_w8a8 = record
         try:
             with torch.inference_mode():
                 imgs[dev] = torch.cat([letterbox_flat_nhwc(
@@ -1469,7 +1575,7 @@ def int8_quant_witness(qparams, frames):
                     LETTERBOX).float() for f in frames])
                 forward_heads(pipe.params, imgs[dev], pipe.family)
         finally:
-            L.quantize_activation = quantize
+            L.conv_w8a8 = conv
     lb_diff = float((imgs["cuda"].cpu() - imgs["cpu"]).abs().max())
     per_frame = torch.zeros(len(frames), dtype=torch.int64)
     n_ties = tie_mism = same_mism = 0
@@ -1484,11 +1590,14 @@ def int8_quant_witness(qparams, frames):
             want = np.clip(r, -127, 127).astype(np.int8)
             n_ties += int((r != np.floor(x / s + np.float32(0.5))).sum())
             xt = torch.from_numpy(x).reshape(1, 1, 1, -1)
-            for got in (quantize(xt, sc), quantize(xt.cuda(), sg).cpu()):
-                tie_mism += int((got[0, 0, :, 0].numpy() != want).sum())
-            qc = quantize(xc, sc)
-            same_mism += int((quantize(xc.cuda(), sg).cpu() != qc).sum())
-            d = (quantize(xg, sg).cpu().int() - qc.int()).abs()
+            tie_mism += int((quantize_activation(xt, sc)[0, 0, :, 0].numpy()
+                             != want).sum())
+            tie_mism += int((fused_quantize(xt.cuda(), sg)[0, 0, :, 0]
+                             .numpy() != want).sum())
+            C = xc.shape[1]
+            qc = quantize_activation(xc, sc)[..., :C]
+            same_mism += int((fused_quantize(xc.cuda(), sg) != qc).sum())
+            d = (fused_quantize(xg, sg).int() - qc.int()).abs()
             flips[key] = [int((d > 0).sum()), int(d.max())]
             per_frame += (d > 0).sum(dim=(1, 2, 3))
     return n_ties, tie_mism, same_mism, lb_diff, flips, per_frame.tolist()
@@ -1548,13 +1657,16 @@ def phase_int8_cpu_vs_card(t0, qparams):
 
 def kernel_label(mangled):
     """A kernel's mangled name -> nms_keep, auction, tracker_chunk<cv>,
-    tracker_chunk<kalman136> or conv_int8<k,stride,output type> (its
-    template arguments)."""
+    tracker_chunk<kalman136> or conv_int8<k,stride,tile_m,input type,A
+    fill> (its template arguments)."""
     import re
-    m = re.search(r"conv_int8_kernelILi(\d)ELi(\d)E(\w)", mangled)
+    m = re.search(r"conv_int8_kernelILi(\d)ELi(\d)ELi(\d+)ELi(\d)ELi(\d)E",
+                  mangled)
     if m:
-        out = {"t": "bf16", "f": "f32", "i": "i32"}.get(m.group(3), "?")
-        return f"conv_int8<{m.group(1)},{m.group(2)},{out}>"
+        src = ("int8", "bf16", "f32")[int(m.group(4))]
+        fill = ("tap", "patch", "patch_async")[int(m.group(5))]
+        return (f"conv_int8<{m.group(1)},{m.group(2)},{m.group(3)},{src},"
+                f"{fill}>")
     for base in ("nms_keep", "auction", "tracker_chunk"):
         if base + "_kernel" in mangled:
             if base == "tracker_chunk":
@@ -1588,10 +1700,16 @@ def main():
     t = time.perf_counter()
     path, build_s = cuda_lib.build()
     cuda_lib.load()
+    ptxas = {kernel_label(k): v for k, v in cuda_lib.ptxas_usage().items()}
+    spills = sorted(k for k, v in ptxas.items() if k.startswith("conv_int8")
+                    and (v.get("spill_stores") or v.get("spill_loads")))
     emit("build", t0, build_s=build_s, cached=build_s == 0.0,
          load_s=time.perf_counter() - t, library=os.path.basename(path),
-         ptxas={kernel_label(k): v
-                for k, v in cuda_lib.ptxas_usage().items()})
+         ptxas=ptxas, conv_int8_instantiations=sum(
+             k.startswith("conv_int8") for k in ptxas),
+         conv_int8_spilling=spills)
+    if spills:
+        raise SystemExit(f"Kernel 4 spills registers in {spills}")
 
     rows = phase_kernels(t0)
     assets = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -1623,7 +1741,9 @@ def main():
             "library_ms", "variants", "ms_reid", "plain_ms_reid",
             "bound_ms_reid", "bound_by_reid", "ms_kalman", "plain_ms_kalman",
             "bound_ms_kalman", "bound_by_kalman", "ms_per_frame",
-            "instantiations", "yardstick_cudnn_bf16_ms",
+            "instantiations", "ms_int8_mode", "plain_ms_int8_mode",
+            "bound_ms_int8_mode", "bound_by_int8_mode",
+            "yardstick_two_pass_ms", "yardstick_cudnn_bf16_ms",
             "yardstick_int_mm_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in rows.values()]}), flush=True)

@@ -9,8 +9,20 @@
 // the host's libm, so only the kernels' control flow and exact integer
 // and comparison logic are what this checks. A barrier that not every
 // thread reaches hangs here as it would on the card.
+//
+// The warp-collective PTX a kernel wraps in small device functions
+// (ldmatrix_x4, mma_s8_16832) is supplied here with a barrier per warp and
+// exchange buffers, the fragment layouts those of the PTX ISA; cp.async
+// (cp_async_16, cp_async_commit, cp_async_wait) is deferred: a copy lands
+// when a wait_group covers its group, so a kernel that reads a stage it
+// has not waited for reads stale shared memory here as it may on the card.
+// A kernel source leaves out its own PTX versions when
+// POSEBYTE_CUDA_EMULATION is defined.
 #pragma once
 
+#define POSEBYTE_CUDA_EMULATION 1
+
+#include <algorithm>
 #include <atomic>
 #include <barrier>
 #include <cmath>
@@ -18,6 +30,7 @@
 #include <cstdint>
 #include <cstring>
 #include <functional>
+#include <memory>
 #include <thread>
 #include <vector>
 
@@ -29,6 +42,18 @@ inline thread_local dim3 blockIdx;
 inline dim3 blockDim;
 inline std::barrier<>* g_block_barrier = nullptr;
 inline std::atomic<int> g_block_or{0};
+// One per warp of the running block: its barrier and two exchange
+// buffers, used in turns by successive collectives (a lane writes one
+// only after the barrier of the collective in between, which every lane
+// reaches after it has read it), so one barrier per collective suffices.
+struct EmuWarp {
+  std::unique_ptr<std::barrier<>> bar;
+  const void* addr[2][32];
+  unsigned a[2][32][4];
+  unsigned b[2][32][2];
+};
+inline thread_local int t_xbuf = 0;  // the exchange buffer of the next one
+inline std::vector<EmuWarp>* g_warps = nullptr;
 alignas(16) inline unsigned char g_smem[256 * 1024];
 inline size_t g_smem_limit = 48 * 1024;
 inline int g_last_error = 0;
@@ -79,13 +104,18 @@ struct alignas(16) int4 {
   int x, y, z, w;
 };
 inline int4 make_int4(int x, int y, int z, int w) { return int4{x, y, z, w}; }
-// Four signed byte products of a and b summed into c (the card's dp4a).
-inline int __dp4a(int a, int b, int c) {
-  for (int i = 0; i < 4; ++i)
-    c += static_cast<int8_t>(static_cast<unsigned>(a) >> (8 * i)) *
-         static_cast<int8_t>(static_cast<unsigned>(b) >> (8 * i));
-  return c;
+struct alignas(8) uint2 {
+  unsigned x, y;
+};
+inline uint2 make_uint2(unsigned x, unsigned y) { return uint2{x, y}; }
+struct alignas(16) uint4 {
+  unsigned x, y, z, w;
+};
+inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) {
+  return uint4{x, y, z, w};
 }
+// IEEE division, round to nearest (the card's __fdiv_rn).
+inline float __fdiv_rn(float a, float b) { return a / b; }
 template <class T>
 inline T __ldg(const T* p) { return *p; }
 inline unsigned atomicOr(unsigned* p, unsigned v) {
@@ -111,6 +141,80 @@ inline float __uint_as_float(unsigned u) {
   return f;
 }
 
+// cp.async: queued per thread, performed by the wait_group that covers
+// its group; src_bytes < 16 fills the rest with zeros.
+struct EmuCopy {
+  void* dst;
+  const void* src;
+  int bytes, group;
+};
+inline thread_local std::vector<EmuCopy> t_copies;
+inline thread_local int t_groups = 0;
+inline void cp_async_16(void* dst, const void* src, int src_bytes) {
+  t_copies.push_back(EmuCopy{dst, src, src_bytes, t_groups});
+}
+inline void cp_async_commit() { ++t_groups; }
+template <int N>
+inline void cp_async_wait() {
+  size_t keep = 0;
+  for (const EmuCopy& c : t_copies) {
+    if (c.group < t_groups - N) {
+      std::memset(c.dst, 0, 16);
+      std::memcpy(c.dst, c.src, static_cast<size_t>(c.bytes));
+    } else {
+      t_copies[keep++] = c;
+    }
+  }
+  t_copies.resize(keep);
+}
+
+inline EmuWarp& emu_warp() { return (*g_warps)[threadIdx.x >> 5]; }
+// ldmatrix.sync.aligned.m8n8.x4.shared.b16: lane l gives the address of
+// row l % 8 of matrix l / 8 and gets bytes 4 (l % 4) .. + 3 of row l / 4
+// of matrix j in r[j].
+inline void ldmatrix_x4(unsigned (&r)[4], const void* p) {
+  EmuWarp& w = emu_warp();
+  const int lane = threadIdx.x & 31, x = t_xbuf;
+  t_xbuf ^= 1;
+  w.addr[x][lane] = p;
+  w.bar->arrive_and_wait();
+  for (int j = 0; j < 4; ++j)
+    std::memcpy(&r[j],
+                static_cast<const unsigned char*>(
+                    w.addr[x][8 * j + lane / 4]) + 4 * (lane % 4),
+                4);
+}
+// mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32, d += a * b. Fragments
+// (g = lane / 4, t = lane % 4): a[0] A[g][4t .. 4t + 3], a[1] A[g + 8][..],
+// a[2] A[g][16 + 4t ..], a[3] A[g + 8][16 + 4t ..]; b0 B[4t ..][g],
+// b1 B[16 + 4t ..][g]; d[0], d[1] C[g][2t], C[g][2t + 1], d[2], d[3] the
+// same of row g + 8.
+inline void mma_s8_16832(int (&d)[4], const unsigned (&a)[4], unsigned b0,
+                         unsigned b1) {
+  EmuWarp& w = emu_warp();
+  const int lane = threadIdx.x & 31, x = t_xbuf;
+  t_xbuf ^= 1;
+  std::memcpy(w.a[x][lane], a, sizeof(w.a[x][lane]));
+  w.b[x][lane][0] = b0;
+  w.b[x][lane][1] = b1;
+  w.bar->arrive_and_wait();
+  auto byte = [](unsigned v, int k) {
+    return static_cast<int>(static_cast<int8_t>(v >> (8 * (k % 4))));
+  };
+  const int g = lane / 4, t = lane % 4;
+  for (int o = 0; o < 4; ++o) {
+    const int row = g + 8 * (o / 2), col = 2 * t + o % 2;
+    int sum = d[o];
+    for (int k = 0; k < 32; ++k) {
+      const int av = byte(w.a[x][(row % 8) * 4 + (k % 16) / 4]
+                             [(row / 8) + 2 * (k / 16)], k);
+      const int bv = byte(w.b[x][col * 4 + (k % 16) / 4][k / 16], k);
+      sum += av * bv;
+    }
+    d[o] = sum;
+  }
+}
+
 // kernel<<<grid, threads, smem, stream>>>(args) becomes
 // emu_launch(grid, threads, smem, [&] { kernel(args); }).
 inline void emu_launch(int grid, int threads, size_t smem,
@@ -124,6 +228,11 @@ inline void emu_launch(int grid, int threads, size_t smem,
     std::memset(g_smem, 0xAB, sizeof(g_smem));  // shared memory is garbage
     std::barrier<> bar(threads);
     g_block_barrier = &bar;
+    std::vector<EmuWarp> warps((threads + 31) / 32);
+    for (size_t w = 0; w < warps.size(); ++w)
+      warps[w].bar = std::make_unique<std::barrier<>>(
+          std::min(32, threads - static_cast<int>(32 * w)));
+    g_warps = &warps;
     std::vector<std::thread> pool;
     pool.reserve(threads);
     for (int t = 0; t < threads; ++t)

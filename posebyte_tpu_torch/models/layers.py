@@ -18,7 +18,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..ops.conv_int8 import conv_int8, pack_weights, quantize_activation
+from ..ops.conv_int8 import conv_w8a8, pack_weights
 
 # Active calibration recorder (models/quant.py sets a CalibrationRecorder
 # while it runs the forward eagerly; None otherwise).
@@ -101,7 +101,7 @@ def prepare_params(params: dict, dtype: torch.dtype, device) -> dict:
       w.to(dtype) * scale.to(dtype) (the JAX conv2d does it per call);
     - w8a8 convs: "wq" Kernel 4's packed int8 weights, "dq" the dequant
       factor float32(act_scale * scale) [O], "act_scale" a 0-d float32
-      tensor on the device (quantize_activation divides by it), "b"
+      tensor on the device (the quantisation divides by it), "b"
       float32."""
     out = {}
     for key in params:
@@ -132,16 +132,15 @@ def prepare_params(params: dict, dtype: torch.dtype, device) -> dict:
 def conv2d(p: dict, key: str, x: torch.Tensor, stride: int = 1):
     """Conv with bias on prepare_params' tensors: a float conv (cuDNN on
     the card) for p[key + ".w"] [O, I, k, k], or the w8a8 conv for
-    p[key + ".wq"]: x quantised to int8 with the calibrated scale, then
-    Kernel 4, out in x's dtype."""
+    p[key + ".wq"]: x quantised to int8 with the calibrated scale and
+    convolved, on the card in one Kernel 4 launch, out in x's dtype."""
     if _CALIBRATION_RECORDER is not None:
         _CALIBRATION_RECORDER.record(key, x)
     wq = p.get(key + ".wq")
     if wq is not None:
-        xq = quantize_activation(x, p[key + ".act_scale"])
         k = round(wq.shape[1] ** 0.5)
-        return conv_int8(xq, wq, p[key + ".dq"], p[key + ".b"], k, stride,
-                         out_dtype=x.dtype)
+        return conv_w8a8(x, p[key + ".act_scale"], wq, p[key + ".dq"],
+                         p[key + ".b"], k, stride)
     w = p[key + ".w"]
     return F.conv2d(x, w, p[key + ".b"], stride=stride,
                     padding=w.shape[-1] // 2)

@@ -1,7 +1,7 @@
-"""The int8 convolution of the w8a8 path: Kernel 4's wrapper, its plain
-version, the activation quantisation that feeds it and the weight packing
-it reads. After posebyte_tpu/ops/pallas_conv.py (conv3x3_int8_pallas) and
-the act_scale branch of posebyte_tpu/models/layers.py::conv2d.
+"""The int8 convolution of the w8a8 path: Kernel 4's wrappers, their plain
+versions, the activation quantisation and the weight packing it reads.
+After posebyte_tpu/ops/pallas_conv.py (conv3x3_int8_pallas) and the
+act_scale branch of posebyte_tpu/models/layers.py::conv2d.
 
     out = cast(float32(sum over taps and channels of int32(xq * wq))
                * scale [+ bias])
@@ -17,8 +17,16 @@ rows), so that an output channel's reduction is contiguous; the output is
 [B, O, Ho, Wo] in channels_last memory (NHWC bytes), as the port's
 activations are.
 
-conv_int8 launches Kernel 4 (csrc/conv_int8.cu) for a CUDA tensor and runs
-the plain version for a CPU tensor. The plain version is exact: every
+Two entries, each launching Kernel 4 (csrc/conv_int8.cu) for a CUDA tensor
+and running its plain version for a CPU tensor:
+- conv_w8a8(x, s_x, ...) takes the float activation as the model holds it
+  (bf16 or float32, channels_last, or a channel slice of such a tensor)
+  and quantises it in the kernel's load: the path the pipeline runs, one
+  launch and nothing else. Its plain version is quantize_activation then
+  conv_int8_plain, the JAX branch's arithmetic.
+- conv_int8(xq, ...) takes the quantised, channel-padded int8 activation
+  (conv3x3_int8_pallas's contract).
+The plain version is exact: every
 product of two int8 values and every partial sum of a convolution (at most
 9 * Cp * 127^2, far below 2^53) is an integer that float64 holds exactly,
 so a float64 convolution in any summation order gives the int32 sums.
@@ -26,6 +34,7 @@ so a float64 convolution in any summation order gives the int32 sums.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -35,7 +44,9 @@ from . import cuda_lib
 C_ALIGN = 32     # input channels padded to a multiple (Kernel 4's step)
 O_ALIGN = 64     # output channels of the packed weights (its block width)
 SHAPES = ((3, 1), (3, 2), (1, 1))    # (k, stride) Kernel 4 instantiates
+TILES_M = (128, 64, 32)              # output pixels per block it instantiates
 _OUT_DTYPES = (torch.bfloat16, torch.float32, torch.int32)
+_IN_DTYPES = (torch.int8, torch.bfloat16, torch.float32)   # its in_type
 
 
 def padded(n: int, align: int) -> int:
@@ -76,18 +87,26 @@ def quantize_activation(x: torch.Tensor, s_x: torch.Tensor) -> torch.Tensor:
 
 
 def _check(xq, w_packed, scale, bias, k, stride, out_dtype):
-    if xq.dtype != torch.int8 or w_packed.dtype != torch.int8:
-        raise TypeError("conv_int8: int8 activations and weights")
-    if xq.dim() != 4 or w_packed.dim() != 3:
-        raise ValueError("conv_int8: xq [B, H, W, Cp], w [Op, k * k, Cp]")
+    if xq.dtype != torch.int8 or xq.dim() != 4:
+        raise TypeError("conv_int8: int8 activations xq [B, H, W, Cp]")
+    _check_weights(xq.shape[-1], w_packed, scale, bias, k, stride,
+                   out_dtype)
+
+
+def _check_weights(Cp, w_packed, scale, bias, k, stride, out_dtype):
+    """Kernel 4's weights, scale and bias for an activation of Cp
+    (padded) channels, and its output type."""
+    if w_packed.dtype != torch.int8 or w_packed.dim() != 3:
+        raise TypeError("conv_int8: int8 weights [Op, k * k, Cp]")
     if (k, stride) not in SHAPES or w_packed.shape[1] != k * k:
         raise ValueError(f"conv_int8: (k, stride) = ({k}, {stride}) with "
                          f"weights {tuple(w_packed.shape)}")
-    Cp, O = xq.shape[-1], scale.shape[0]
+    O = scale.shape[0]
     if w_packed.shape[2] != Cp or Cp % C_ALIGN \
             or w_packed.shape[0] % O_ALIGN or w_packed.shape[0] < O:
-        raise ValueError(f"conv_int8: xq {tuple(xq.shape)} and weights "
-                         f"{tuple(w_packed.shape)} are not padded alike")
+        raise ValueError(f"conv_int8: activations of {Cp} channels and "
+                         f"weights {tuple(w_packed.shape)} are not padded "
+                         "alike")
     if scale.dtype != torch.float32 or scale.dim() != 1 or (
             bias is not None and (bias.dtype != torch.float32
                                   or tuple(bias.shape) != (O,))):
@@ -121,38 +140,149 @@ def conv_int8_plain(xq: torch.Tensor, w_packed: torch.Tensor,
     return y.contiguous(memory_format=torch.channels_last)
 
 
-def conv_int8_cuda(xq: torch.Tensor, w_packed: torch.Tensor,
-                   scale: torch.Tensor, bias: torch.Tensor | None, k: int,
-                   stride: int, out_dtype=torch.bfloat16) -> torch.Tensor:
-    """Kernel 4 on CUDA tensors (one launch). Raises on a bad input or a
-    launch error. out_dtype=torch.int32 writes the int32 sums (no
-    epilogue), for checking the kernel's reduction alone."""
-    _check(xq, w_packed, scale, bias, k, stride, out_dtype)
-    dev = xq.device
-    tensors = [xq, w_packed, scale] + ([] if bias is None else [bias])
-    if not all(t.is_cuda and t.device == dev and t.is_contiguous()
-               for t in tensors):
-        raise ValueError("conv_int8_cuda: contiguous inputs on one CUDA "
-                         "device")
-    if xq.data_ptr() % 16 or w_packed.data_ptr() % 16:
-        raise ValueError("conv_int8_cuda: inputs must be 16-byte aligned")
-    B, H, W, Cp = xq.shape
+def conv_w8a8_plain(x: torch.Tensor, s_x: torch.Tensor,
+                    w_packed: torch.Tensor, scale: torch.Tensor,
+                    bias: torch.Tensor | None, k: int, stride: int,
+                    out_dtype=None) -> torch.Tensor:
+    """The float-input convolution's plain version: quantize_activation,
+    then conv_int8_plain; out_dtype defaults to x's."""
+    return conv_int8_plain(quantize_activation(x, s_x), w_packed, scale,
+                           bias, k, stride, out_dtype or x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def tile_m(device: torch.device, B: int, Ho: int, Wo: int, O: int,
+           patch: bool = False) -> int:
+    """Kernel 4's output pixels per block for an output [B, O, Ho, Wo]: the
+    largest of TILES_M that still gives every SM of the card a block (a
+    batch of 128 frames takes 128), else the one giving the most blocks.
+    patch: a 3x3 conv of a float input, whose blocks take whole output rows
+    (the tile must hold one; else the kernel goes tap by tap)."""
+    n_tiles = padded(O, O_ALIGN) // O_ALIGN
+    tiles = [t for t in TILES_M if not patch or Wo <= t]
+    if not tiles:
+        tiles, patch = list(TILES_M), False
+
+    def blocks(t):
+        if patch:
+            return B * -(-Ho // (t // Wo)) * n_tiles
+        return -(-(B * Ho * Wo) // t) * n_tiles
+
+    for t in tiles:
+        if blocks(t) >= _sm_count(device.index or 0):
+            return t
+    return max(tiles, key=blocks)
+
+
+def _launch(x, in_type, s_x, ps, C, w_packed, scale, bias, k, stride,
+            out_dtype, what):
+    """One Kernel 4 launch on x [B, *, H, W] (NHWC memory, pixel stride
+    ps) -> [B, O, Ho, Wo] in channels_last memory."""
+    dev = x.device
+    tensors = [w_packed, scale] + ([] if bias is None else [bias]) \
+        + ([] if s_x is None else [s_x])
+    if not (x.is_cuda and all(t.is_cuda and t.device == dev
+                              and t.is_contiguous() for t in tensors)):
+        raise ValueError(f"{what}: inputs on one CUDA device, contiguous "
+                         "weights, scale and bias")
+    if w_packed.data_ptr() % 16:
+        raise ValueError(f"{what}: packed weights must be 16-byte aligned")
+    B, _, H, W = x.shape
     O = scale.shape[0]
     Ho, Wo = _out_size(H, k, stride), _out_size(W, k, stride)
     out = torch.empty((B, Ho, Wo, O), dtype=out_dtype, device=dev)
-    lib = cuda_lib.load()
-    status = lib.posebyte_conv_int8(
-        xq.data_ptr(), w_packed.data_ptr(), scale.data_ptr(),
+    status = cuda_lib.load().posebyte_conv_int8(
+        x.data_ptr(), in_type, None if s_x is None else s_x.data_ptr(), ps,
+        C, w_packed.data_ptr(), scale.data_ptr(),
         None if bias is None else bias.data_ptr(), out.data_ptr(), B, H, W,
-        Cp, O, w_packed.shape[0], k, stride,
+        w_packed.shape[2], O, w_packed.shape[0], k, stride,
         _OUT_DTYPES.index(out_dtype),
+        tile_m(dev, B, Ho, Wo, O, patch=in_type != 0 and k == 3),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
-    cuda_lib.check(status, "conv_int8_cuda")
+    cuda_lib.check(status, what)
     conv_int8_cuda.launches += 1
     return out.permute(0, 3, 1, 2)
 
 
+def conv_int8_cuda(xq: torch.Tensor, w_packed: torch.Tensor,
+                   scale: torch.Tensor, bias: torch.Tensor | None, k: int,
+                   stride: int, out_dtype=torch.bfloat16) -> torch.Tensor:
+    """Kernel 4's int8 mode on CUDA tensors (one launch). Raises on a bad
+    input or a launch error. out_dtype=torch.int32 writes the int32 sums
+    (no epilogue), for checking the kernel's reduction alone.
+
+    conv_int8_cuda.launches counts the launches of both modes."""
+    _check(xq, w_packed, scale, bias, k, stride, out_dtype)
+    if not xq.is_contiguous() or xq.data_ptr() % 16:
+        raise ValueError("conv_int8_cuda: a contiguous, 16-byte aligned xq")
+    Cp = xq.shape[-1]
+    return _launch(xq.permute(0, 3, 1, 2), 0, None, Cp, Cp, w_packed, scale,
+                   bias, k, stride, out_dtype, "conv_int8_cuda")
+
+
 conv_int8_cuda.launches = 0
+
+
+def pixel_stride(x: torch.Tensor) -> int | None:
+    """The pixel stride of x [B, C, H, W] when its memory is NHWC with
+    channel stride 1 (channels_last, or a channel slice of a wider such
+    tensor), else None: the layouts Kernel 4's float mode reads."""
+    B, C, H, W = x.shape
+    sB, sC, sH, sW = x.stride()
+    ps = sW if W > 1 else sH if H > 1 else sB if B > 1 else C
+    ok = ((C == 1 or sC == 1) and ps >= C and (H == 1 or sH == W * ps)
+          and (B == 1 or sB == H * W * ps))
+    return ps if ok else None
+
+
+def _check_w8a8(x, s_x, w_packed, scale, bias, k, stride, out_dtype):
+    if x.dtype not in (torch.bfloat16, torch.float32) or x.dim() != 4:
+        raise TypeError("conv_w8a8: x bf16 or float32 [B, C, H, W]")
+    if s_x.dtype != torch.float32 or s_x.dim() != 0 \
+            or s_x.device != x.device:
+        raise ValueError("conv_w8a8: s_x a 0-d float32 tensor on x's device")
+    _check_weights(padded(x.shape[1], C_ALIGN), w_packed, scale, bias, k,
+                   stride, out_dtype)
+
+
+def conv_w8a8_cuda(x: torch.Tensor, s_x: torch.Tensor,
+                   w_packed: torch.Tensor, scale: torch.Tensor,
+                   bias: torch.Tensor | None, k: int, stride: int,
+                   out_dtype=None) -> torch.Tensor:
+    """Kernel 4's float mode on CUDA tensors: x quantised in the kernel's
+    load (one launch, no other operation). Raises on a bad input or a
+    launch error; x must be NHWC in memory (pixel_stride)."""
+    out_dtype = out_dtype or x.dtype
+    _check_w8a8(x, s_x, w_packed, scale, bias, k, stride, out_dtype)
+    ps = pixel_stride(x)
+    if ps is None:
+        raise ValueError(f"conv_w8a8_cuda: x with strides {x.stride()} is "
+                         "not NHWC with channel stride 1")
+    return _launch(x, _IN_DTYPES.index(x.dtype), s_x, ps, x.shape[1],
+                   w_packed, scale, bias, k, stride, out_dtype,
+                   "conv_w8a8_cuda")
+
+
+def conv_w8a8(x: torch.Tensor, s_x: torch.Tensor, w_packed: torch.Tensor,
+              scale: torch.Tensor, bias: torch.Tensor | None, k: int,
+              stride: int, out_dtype=None) -> torch.Tensor:
+    """The w8a8 convolution of a float activation x [B, C, H, W] with the
+    calibrated scale s_x: Kernel 4 (quantising in its load) for a CUDA
+    tensor, the plain version for a CPU tensor. Out in x's dtype unless
+    out_dtype (torch.int32: the sums)."""
+    if x.is_cuda:
+        return conv_w8a8_cuda(x, s_x, w_packed, scale, bias, k, stride,
+                              out_dtype)
+    if x.device.type != "cpu":
+        raise ValueError(f"conv_w8a8: unsupported device {x.device}")
+    _check_w8a8(x, s_x, w_packed, scale, bias, k, stride,
+                out_dtype or x.dtype)
+    return conv_w8a8_plain(x, s_x, w_packed, scale, bias, k, stride,
+                           out_dtype)
 
 
 def conv_int8(xq: torch.Tensor, w_packed: torch.Tensor, scale: torch.Tensor,
@@ -166,4 +296,3 @@ def conv_int8(xq: torch.Tensor, w_packed: torch.Tensor, scale: torch.Tensor,
     if xq.device.type != "cpu":
         raise ValueError(f"conv_int8: unsupported device {xq.device}")
     return conv_int8_plain(xq, w_packed, scale, bias, k, stride, out_dtype)
-

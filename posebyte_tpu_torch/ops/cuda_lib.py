@@ -1,13 +1,14 @@
 """Build and load the port's CUDA kernels (posebyte_tpu_torch/csrc/).
 
-One nvcc call compiles every source into one shared library with a plain C
-interface, loaded with ctypes; no PyTorch header is compiled. The library
-is cached in build/cuda/ at the repository root under a hash of the sources
-and flags, so the first use on a machine builds it and later uses load it.
-A build writes to a temporary file and renames it into place, so processes
-building at once never load a half-written library; nvcc's report of each
-kernel's registers and spills (-Xptxas -v) is kept beside the library
-(ptxas_usage reads it). Nothing here runs at import time.
+One nvcc process per source, all started together, compiles the sources,
+and one more links them into a shared library with a plain C interface,
+loaded with ctypes; no PyTorch header is compiled. The library is cached
+in build/cuda/ at the repository root under a hash of the sources and
+flags, so the first use on a machine builds it and later uses load it. A
+build writes to a temporary directory and renames the library into place,
+so processes building at once never load a half-written library; nvcc's
+report of each kernel's registers and spills (-Xptxas -v) is kept beside
+the library (ptxas_usage reads it). Nothing here runs at import time.
 
 Environment: CUDA_HOME (default /usr/local/cuda) locates nvcc, else the
 PATH does; POSEBYTE_CUDA_BUILD_DIR overrides the build directory.
@@ -29,8 +30,7 @@ SOURCES = ("nms_keep.cu", "auction.cu", "tracker_chunk.cu",
            "conv_int8.cu")
 HEADERS = ("auction.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _c_void_p, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -47,7 +47,8 @@ _SIGNATURES = {
                                         _c_void_p]),
     "posebyte_tracker_chunk_smem_bytes": (ctypes.c_size_t,
                                           [_c_int, _c_int, _c_int]),
-    "posebyte_conv_int8": (_c_int, [_c_void_p] * 5 + [_c_int] * 9
+    "posebyte_conv_int8": (_c_int, [_c_void_p, _c_int, _c_void_p, _c_int,
+                                    _c_int] + [_c_void_p] * 4 + [_c_int] * 10
                            + [_c_void_p]),
     "posebyte_error_string": (ctypes.c_char_p, [_c_int]),
 }
@@ -87,22 +88,39 @@ def build() -> tuple[str, float]:
     if os.path.exists(path):
         return path, 0.0
     os.makedirs(build_dir(), exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=build_dir())
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *(os.path.join(CSRC, s) for s in SOURCES)]
+    tmp = tempfile.mkdtemp(dir=build_dir())
     t0 = time.perf_counter()
+    objs, procs = [], []
     try:
+        for name in SOURCES:
+            objs.append(os.path.join(tmp, name + ".o"))
+            cmd = [_nvcc(), *NVCC_FLAGS, "-c", os.path.join(CSRC, name),
+                   "-o", objs[-1]]
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        log = []
+        for cmd, proc in procs:
+            out, _ = proc.communicate(timeout=600)
+            log.append(out)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{out}")
+        lib = os.path.join(tmp, "lib.so")
+        cmd = [_nvcc(), "-shared", "-o", lib, *objs]
         r = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
         if r.returncode != 0:
             raise RuntimeError(f"nvcc failed ({r.returncode}):\n"
                                f"{' '.join(cmd)}\n{r.stdout}\n{r.stderr}")
         with open(_log_path(path), "w") as f:
-            f.write(r.stdout + r.stderr)
-        os.replace(tmp, path)
+            f.write("".join(log))
+        os.replace(lib, path)
     finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
     return path, time.perf_counter() - t0
 
 

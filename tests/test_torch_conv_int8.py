@@ -1,11 +1,13 @@
-"""Kernel 4's plain version, the activation quantisation and the port's
-conv2d in its three parameter flavours (posebyte_tpu_torch/ops/conv_int8.py,
-models/layers.py) against the JAX package: lax.conv_general_dilated with
-int32 accumulation, conv3x3_int8_pallas in interpret mode, and
-posebyte_tpu.models.layers.conv2d.
+"""Kernel 4's plain versions (both modes), the activation quantisation and
+the port's conv2d in its three parameter flavours
+(posebyte_tpu_torch/ops/conv_int8.py, models/layers.py) against the JAX
+package: lax.conv_general_dilated with int32 accumulation,
+conv3x3_int8_pallas in interpret mode, and posebyte_tpu.models.layers.conv2d
+(its w8a8 branch for the float-input entry conv_w8a8).
 
 Tolerances: none for the int8 convolution (int32 sums, float32 and bf16
-outputs bit for bit) and for the quantisation (ties included); the float
+outputs bit for bit), for conv_w8a8 and for the quantisation (ties
+included); the float
 and weight-only flavours, which both packages leave to their library's
 convolution, within 2e-6 of the output's largest magnitude in float32
 (summation order; 3e-7 measured) and within one bf16 step (2^-7 relative)
@@ -179,3 +181,117 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
         CI.conv_int8(x, w, sc.double(), None, 3, 1)
     with pytest.raises(ValueError):
         CI.conv_int8_cuda(x, w, sc, None, 3, 1)          # a CPU tensor
+
+
+def _w8a8_case(seed, dtype, C, O, k, ps=None, x_off=0, B=2, H=9, W=7):
+    """A float activation [B, C, H, W] in dtype and NHWC memory (channels
+    x_off .. + C of a tensor of ps channels when given), a third of its
+    values exactly on the .5 ties of s_x and some beyond the clamp, and a
+    w8a8 parameter set in the JAX layout (HWIO int8 weights)."""
+    rng = np.random.default_rng(seed)
+    s_x = np.float32(0.04)
+    ps = ps or C
+    full = rng.normal(0, 3, (B, H, W, ps)).astype(np.float32)
+    n = rng.integers(-140, 140, full.shape).astype(np.float32)
+    ties = rng.uniform(size=full.shape) < 0.3
+    full[ties] = ((n + np.float32(0.5)) * s_x)[ties]
+    x = torch.from_numpy(full).to(dtype).permute(0, 3, 1, 2)[
+        :, x_off:x_off + C]
+    w = rng.integers(-127, 128, (k, k, C, O)).astype(np.int8)
+    scale = rng.uniform(0.001, 0.01, O).astype(np.float32)
+    b = rng.normal(0, 1, O).astype(np.float32)
+    return x, s_x, {"w": w, "scale": scale, "act_scale": s_x, "b": b}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("k,stride", CI.SHAPES)
+@pytest.mark.parametrize("C,ps,x_off", [
+    (51, None, 0),       # the keypoint head's ragged width
+    (64, None, 0),
+    (128, None, 0),
+    (32, 64, 32),        # c2f's channel slice y[:, c_h:] of a wider tensor
+])
+def test_conv_w8a8_matches_jax_w8a8_branch(dtype, k, stride, C, ps, x_off):
+    """The float-input entry on the CPU (quantize_activation, then the
+    plain int8 convolution) against posebyte_tpu.models.layers.conv2d's
+    w8a8 branch on the same values, bit for bit, .5 ties included; the
+    output in x's dtype, channels_last."""
+    O = 51 if C == 64 else 64
+    x, s_x, jp = _w8a8_case(C + k + stride, dtype, C, O, k, ps, x_off)
+    assert CI.pixel_stride(x) == (ps or C)
+    jdtype = {torch.bfloat16: jnp.bfloat16, torch.float32: jnp.float32}[dtype]
+    xn = x.float().permute(0, 2, 3, 1).numpy()
+    ties = np.round(xn / s_x) != np.floor(xn / s_x + np.float32(0.5))
+    assert ties.sum() > 20       # half-even rounding shows (bf16 keeps few)
+    want = _jax_conv({n: jnp.asarray(v) for n, v in jp.items()}, xn,
+                     stride, jdtype)
+    got = CI.conv_w8a8(x, torch.tensor(s_x), CI.pack_weights(
+        np.transpose(jp["w"], (3, 2, 0, 1))), torch.from_numpy(
+        s_x * jp["scale"]), torch.from_numpy(jp["b"]), k, stride)
+    assert got.dtype == dtype
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    np.testing.assert_array_equal(_nhwc(got), want)
+
+
+def test_conv_w8a8_int32_sums_are_the_quantised_products():
+    """out_dtype=torch.int32: the int32 sums of the quantised activation,
+    as XLA's int8 convolution gives them."""
+    x, s_x, jp = _w8a8_case(5, torch.bfloat16, 51, 64, 3)
+    xq = np.clip(np.round(x.float().permute(0, 2, 3, 1).numpy() / s_x),
+                 -127, 127).astype(np.int8)
+    got = CI.conv_w8a8(x, torch.tensor(s_x), CI.pack_weights(
+        np.transpose(jp["w"], (3, 2, 0, 1))), torch.ones(64), None, 3, 2,
+        out_dtype=torch.int32)
+    np.testing.assert_array_equal(got.permute(0, 2, 3, 1).numpy(),
+                                  np.asarray(_xla_sums(xq, jp["w"], 3, 2)))
+
+
+def test_pixel_stride_names_the_layouts_the_kernel_reads():
+    x = torch.zeros((2, 64, 5, 6)).contiguous(
+        memory_format=torch.channels_last)
+    assert CI.pixel_stride(x) == 64
+    assert CI.pixel_stride(x[:, 32:]) == 64
+    assert CI.pixel_stride(x[:1, 16:48, :1, :1]) is not None  # one pixel
+    assert CI.pixel_stride(torch.zeros((2, 64, 5, 6))) is None     # NCHW
+    assert CI.pixel_stride(x[:, :, ::2]) is None        # every other row
+
+
+def test_w8a8_wrapper_refuses_what_the_kernel_does_not_take():
+    x, s_x, jp = _w8a8_case(1, torch.float32, 51, 64, 3)
+    w = CI.pack_weights(np.transpose(jp["w"], (3, 2, 0, 1)))
+    sx, sc = torch.tensor(s_x), torch.from_numpy(jp["scale"])
+    with pytest.raises(TypeError):
+        CI.conv_w8a8(x.double(), sx, w, sc, None, 3, 1)      # float64
+    with pytest.raises(TypeError):
+        CI.conv_w8a8(x.half(), sx, w, sc, None, 3, 1)        # float16
+    with pytest.raises(ValueError):
+        CI.conv_w8a8(x, sx[None], w, sc, None, 3, 1)         # s_x not 0-d
+    with pytest.raises(ValueError):
+        CI.conv_w8a8(x, sx.double(), w, sc, None, 3, 1)
+    with pytest.raises(ValueError):
+        CI.conv_w8a8(x[:, :20], sx, w, sc, None, 3, 1)       # Cp 32 != 64
+    with pytest.raises(ValueError):
+        CI.conv_w8a8(x, sx, w, sc, None, 3, 3)               # no such shape
+    with pytest.raises(TypeError):
+        CI.conv_w8a8(x, sx, w, sc, None, 3, 1, out_dtype=torch.float16)
+    with pytest.raises(ValueError):
+        CI.conv_w8a8_cuda(x, sx, w, sc, None, 3, 1)          # a CPU tensor
+    with pytest.raises(ValueError):
+        CI.conv_w8a8_cuda(x.contiguous(), sx, w, sc, None, 3, 1)   # NCHW
+
+
+def test_tile_m_fills_the_card_and_prefers_whole_row_patches(monkeypatch):
+    """Kernel 4's pixel tile: 128 when a batch of 128 fills the card; at
+    one frame the tile that gives the most blocks, and for a 3x3 conv of a
+    float input one that holds a whole output row (its patch), at the
+    path's widths."""
+    monkeypatch.setattr(CI, "_sm_count", lambda index: 132)
+    dev = torch.device("cuda")
+    for patch in (False, True):
+        for Ho, O in ((80, 64), (40, 128), (20, 256)):
+            assert CI.tile_m(dev, 128, Ho, Ho, O, patch) == 128
+    assert CI.tile_m(dev, 1, 80, 80, 64) == 32             # 200 blocks
+    assert CI.tile_m(dev, 1, 80, 80, 64, patch=True) == 128    # 80 rows
+    assert CI.tile_m(dev, 1, 40, 40, 64, patch=True) == 64     # 40 rows
+    assert CI.tile_m(dev, 1, 20, 20, 128, patch=True) == 32
+    assert CI.tile_m(dev, 1, 5, 200, 64, patch=True) == 32     # tap by tap

@@ -14,8 +14,9 @@ integer outputs and state equal, floats within 1e-5 px + 1e-6 relative
 float equal too; the per-frame and the chunk pipeline on the card against
 the CPU in fp32 within 1e-2 px with equal track ids (cuDNN and oneDNN sum
 the convolutions in different orders), with and without Re-ID, with either
-motion model. Kernel 4 against its plain version on the card: the int32
-sums and the bf16 and float32 outputs equal. The int8 pipeline (float32
+motion model. Kernel 4 against its plain version on the card, in both
+modes (int8 input; float input quantised in its load): the int32 sums and
+the bf16 and float32 outputs equal. The int8 pipeline (float32
 activations) on the card against the CPU: ids equal, keypoints within 8 px
 with a median difference within 0.5 px (2.2 and 0.32 px measured on an
 H100): the float convolutions of cuDNN and oneDNN differ ~1e-6 relative,
@@ -552,6 +553,73 @@ def test_conv_int8_kernel_matches_plain(card, k, stride, B, H, W, C, O,
                            if dtype == torch.bfloat16 else want)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("k,stride", [(3, 1), (3, 2), (1, 1)])
+@pytest.mark.parametrize("B,H,W,C,O,bias,ps,x_off", [
+    (2, 8, 8, 128, 128, False, 128, 0),   # the JAX kernel test's shape
+    (1, 80, 80, 51, 51, True, 51, 0),     # 102-byte bf16 rows, 32-pixel tiles
+    (1, 80, 80, 32, 128, True, 64, 32),   # c2f's channel slice, 64-pixel tiles
+    (1, 20, 20, 256, 1, True, 256, 0),    # the confidence head's one channel
+    (4, 40, 40, 64, 130, True, 64, 0)])   # ragged output tiles, 128-pixel tiles
+def test_conv_w8a8_kernel_matches_plain(card, dtype, k, stride, B, H, W, C,
+                                        O, bias, ps, x_off):
+    """Kernel 4's float mode (the activation quantised in its load) against
+    its plain version on the card (quantize_activation, then an exact
+    float64 convolution): int32 sums and the output in the input's type
+    equal bit for bit, .5 ties included; one launch per call and no other
+    device operation."""
+    from posebyte_tpu_torch.ops import conv_int8 as CI
+    rng = np.random.default_rng(B * H + C + O + x_off)
+    s_x = np.float32(0.04)
+    full = rng.normal(0, 3, (B, H, W, ps)).astype(np.float32)
+    n = rng.integers(-140, 140, full.shape).astype(np.float32)
+    ties = rng.uniform(size=full.shape) < 0.3
+    full[ties] = ((n + np.float32(0.5)) * s_x)[ties]
+    x = torch.from_numpy(full).to(card, dtype).permute(0, 3, 1, 2)[
+        :, x_off:x_off + C]
+    sx = torch.tensor(s_x, device=card)
+    wq = CI.pack_weights(torch.from_numpy(rng.integers(
+        -127, 128, (O, C, k, k)).astype(np.int8)).to(card))
+    scale = torch.from_numpy(rng.uniform(1e-4, 1e-2, O).astype(
+        np.float32)).to(card)
+    b = torch.from_numpy(rng.normal(0, 1, O).astype(np.float32)).to(card) \
+        if bias else None
+    for out_dtype in (torch.int32, dtype):
+        before = CI.conv_int8_cuda.launches
+        got = CI.conv_w8a8(x, sx, wq, scale, b, k, stride, out_dtype)
+        assert CI.conv_int8_cuda.launches == before + 1
+        want = CI.conv_w8a8_plain(x, sx, wq, scale, b, k, stride, out_dtype)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape and got.dtype == out_dtype
+        if out_dtype != torch.int32:
+            got, want = got.float(), want.float()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("s_x", [0.05, 0.012852498, 0.10032497])
+def test_conv_w8a8_card_quantises_ties_like_cpu(card, s_x):
+    """The quantisation in Kernel 4's load equals quantize_activation on
+    the CPU: a 1x1 conv with identity weights and scale 1, int32 sums,
+    returns the quantised values themselves; inputs at (n + 0.5) * s_x,
+    beyond the clamp, of both signs, float32 and bf16."""
+    from posebyte_tpu_torch.ops import conv_int8 as CI
+    rng = np.random.default_rng(5)
+    s = np.float32(s_x)
+    n = rng.integers(-140, 140, (2, 51, 6, 7)).astype(np.float32)
+    x = ((n + np.float32(0.5)) * s).astype(np.float32)
+    x[:, ::4] = rng.normal(0, 40 * s, x[:, ::4].shape)
+    eye = CI.pack_weights(torch.eye(51, dtype=torch.int8)[:, :, None, None]
+                          .to(card))
+    for dtype in (torch.float32, torch.bfloat16):
+        xt = torch.from_numpy(x).to(dtype).contiguous(
+            memory_format=torch.channels_last)
+        want = CI.quantize_activation(xt, torch.tensor(s))[..., :51]
+        got = CI.conv_w8a8(xt.to(card), torch.tensor(s, device=card), eye,
+                           torch.ones(51, device=card), None, 1, 1,
+                           torch.int32)
+        assert torch.equal(got.permute(0, 2, 3, 1).cpu(), want.int())
+
+
 @pytest.mark.parametrize("s_x", [0.05, 0.012852498, 0.10032497])
 def test_quantize_activation_card_matches_cpu_with_ties(card, s_x):
     """clamp(round(x / s_x)) half to even on the card, equal to the CPU's
@@ -586,7 +654,8 @@ def test_int8_pipeline_card_matches_cpu(card):
     port on the CPU) with float32 activations on the card against the CPU:
     a chunk of K = 8 and 4 per-frame frames; ids equal, keypoints within
     the bars of the module's docstring; Kernel 4 launched once per
-    quantised conv (59 per frame and per chunk)."""
+    quantised conv (59 per frame and per chunk) and quantize_activation
+    never run on the card."""
     from posebyte_tpu_torch.core import DetectorConfig, PipelineConfig
     from posebyte_tpu_torch.models import load_params
     from posebyte_tpu_torch.models import quant as Q
@@ -617,16 +686,28 @@ def test_int8_pipeline_card_matches_cpu(card):
         for x, y in zip(gpu, cpu):
             diffs.append(np.abs(x.keypoints[:, :2] - y.keypoints[:, :2]))
 
+    quantize, on_card = CI.quantize_activation, []
+
+    def count(x, s_x):
+        on_card.append(x.is_cuda)
+        return quantize(x, s_x)
+
     before = CI.conv_int8_cuda.launches
-    cpu, gpu = (p.fetch_chunk_outputs(p.process_chunk(frames[:8]), 1280,
-                                      720) for p in pipes)
-    for a, b in zip(cpu, gpu):
-        same(a, b)
-    assert CI.conv_int8_cuda.launches - before == 59
-    assert len(gpu[-1]) >= 3
-    for fr in frames[8:]:
-        same(*(p.fetch_outputs(p.process_frame(fr), 1280, 720)
-               for p in pipes))
+    CI.quantize_activation = count
+    try:
+        cpu, gpu = (p.fetch_chunk_outputs(p.process_chunk(frames[:8]), 1280,
+                                          720) for p in pipes)
+        for a, b in zip(cpu, gpu):
+            same(a, b)
+        assert CI.conv_int8_cuda.launches - before == 59
+        assert len(gpu[-1]) >= 3
+        for fr in frames[8:]:
+            same(*(p.fetch_outputs(p.process_frame(fr), 1280, 720)
+                   for p in pipes))
+    finally:
+        CI.quantize_activation = quantize
     assert CI.conv_int8_cuda.launches - before == 59 * 5
+    # the CPU quantises eagerly once per conv, the card never (its load)
+    assert len(on_card) == 59 * 5 and not any(on_card)
     d = np.concatenate([x.ravel() for x in diffs])
     assert d.max() <= 8.0 and np.median(d) <= 0.5

@@ -90,6 +90,34 @@ def test_int8_forward_matches_jax(qparams, precision):
             assert (err <= 1e-4 * scale).mean() >= 0.9
 
 
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+def test_int8_forward_gives_kernel_4_its_layouts(qparams, precision):
+    """Every one of the 59 w8a8 convolutions of the forward gets its float
+    activation in a layout Kernel 4's float mode reads without a copy (NHWC
+    memory, channel stride 1; c2f's channel slices among them), so that on
+    the card each is one launch and nothing else."""
+    from posebyte_tpu_torch.models import layers as L
+    from posebyte_tpu_torch.ops.conv_int8 import pixel_stride
+    tdtype = {"fp32": torch.float32, "bf16": torch.bfloat16}[precision]
+    params = prepare_params(qparams[0], tdtype, "cpu")
+    seen, conv = [], L.conv_w8a8
+
+    def record(x, *args, **kw):
+        seen.append((x.dtype, x.shape[1], pixel_stride(x)))
+        return conv(x, *args, **kw)
+
+    L.conv_w8a8 = record
+    try:
+        with torch.inference_mode():
+            forward_heads(params, torch.from_numpy(
+                calibration_frames(1, 256, seed=3)).to(tdtype))
+    finally:
+        L.conv_w8a8 = conv
+    assert len(seen) == 59
+    assert all(dt == tdtype and ps is not None for dt, _, ps in seen), seen
+    assert any(ps > c for _, c, ps in seen)      # channel slices go in
+
+
 def _frames(n, seed=11, persons=4):
     scene = SyntheticScene(persons, W, H, seed=seed)
     return np.stack([render_frame(scene.step(), W, H) for _ in range(n)])

@@ -7,7 +7,8 @@ barriers and uniform loop exits, tie rules -- on a host without a card.
 Each emulated launch runs in a child process with a time limit, so a
 barrier that not every thread reaches fails the test instead of hanging
 it. Tolerance: none for keep masks, assignments, the tracker's integers
-and Kernel 4's int8 convolution (int32 sums, bf16 and float32 outputs); tracker floats within 1e-4 px (see assert_tracker_equal), except
+and Kernel 4's convolution in both modes (int32 sums, bf16 and float32
+outputs); tracker floats within 1e-4 px (see assert_tracker_equal), except
 the kalman136 filter's mean and covariance, which must be equal (their
 arithmetic holds no expf). Needs g++ with C++20; the card itself is tested
 in tests/test_torch_cuda.py.
@@ -61,19 +62,28 @@ if sys.argv[2] == "nms":
         float(d["oks"]), d["sig4"].ctypes.data, None)
     np.savez(sys.argv[4], status=st, keep=keep)
 elif sys.argv[2] == "conv":
-    # one launch per row (k, stride, out_type) of cfg, on the same inputs
-    B, H, W, Cp = d["x"].shape
+    # one launch per row (in_type, k, stride, out_type, tile_m) of cfg, on
+    # the same inputs: in_type 0 reads x (int8 [B, H, W, Cp]), 1 and 2 xb
+    # (bf16 bits) and xf (float32), [B, H, W, ps], channels x_off .. + C
+    B, H, W = d["x"].shape[:3]
     O = d["scale"].shape[0]
     outs = {}
-    for i, (k, stride, out_type) in enumerate(d["cfg"].tolist()):
+    for i, (in_type, k, stride, out_type, tile) in enumerate(
+            d["cfg"].tolist()):
+        x, C, off = d["x"], d["x"].shape[3], 0
+        if in_type:
+            x, C, off = d[("xb", "xf")[in_type - 1]], int(d["C"]), \
+                int(d["x_off"])
         w = d[f"w{k}"]
         Ho, Wo = ((n + 2 * (k // 2) - k) // stride + 1 for n in (H, W))
         out = np.zeros((B, Ho, Wo, O),
                        (np.uint16, np.float32, np.int32)[out_type])
         st = fn("posebyte_conv_int8")(
-            d["x"].ctypes.data, w.ctypes.data, d["scale"].ctypes.data,
+            x.ctypes.data + off * x.itemsize, in_type, d["s_x"].ctypes.data,
+            x.shape[3], C, w.ctypes.data, d["scale"].ctypes.data,
             d["bias"].ctypes.data if "bias" in d else None, out.ctypes.data,
-            B, H, W, Cp, O, w.shape[0], k, stride, out_type, None)
+            B, H, W, w.shape[2], O, w.shape[0], k, stride, out_type, tile,
+            None)
         assert st == 0, st
         outs[f"out{i}"] = out
     np.savez(sys.argv[4], status=0, **outs)
@@ -309,9 +319,10 @@ def test_tracker_kernel_source_matches_plain(emulated, seed, K, T, D,
         assert int(want_outs["num_active"].max()) == T   # the pool is full
 
 
-def _mutant(emulated, tmp_path, old, new, source="tracker_chunk.cu"):
+def _mutant(emulated, tmp_path, old, new, source="tracker_chunk.cu",
+            opt="-O1"):
     """The emulated library with a kernel's source (Kernel 3's unless
-    named) mutated (old -> new)."""
+    named) mutated (old -> new), compiled at g++ level `opt`."""
     _, out = emulated
     with open(os.path.join(cuda_lib.CSRC, source)) as f:
         src = _to_cpp(f.read())
@@ -319,7 +330,7 @@ def _mutant(emulated, tmp_path, old, new, source="tracker_chunk.cu"):
     assert bad != src
     (out / "tracker_mutant.cpp").write_text(bad)
     lib = tmp_path / "libmutant.so"
-    r = subprocess.run([shutil.which("g++"), "-std=c++20", "-O1", "-fPIC",
+    r = subprocess.run([shutil.which("g++"), "-std=c++20", opt, "-fPIC",
                         "-shared", "-pthread", "-ffp-contract=off", "-I",
                         str(out), "-o", str(lib),
                         str(out / "tracker_mutant.cpp")],
@@ -457,47 +468,73 @@ def test_tracker_kernel_kalman_mutation_is_caught(emulated, tmp_path, old,
         assert_tracker_equal(got, want_state, want_outs)
 
 
-def conv_case(seed, B, H, W, C, O, bias=True):
-    """Kernel 4's inputs as the pipeline gives them: int8 activations
-    quantised and channel-padded, packed int8 weights for k = 3 and 1,
-    scale (and bias)."""
+def conv_case(seed, B, H, W, C, O, bias=True, ps=None, x_off=0,
+              s_x=0.05):
+    """Kernel 4's inputs: a float activation [B, C, H, W] (float32, NHWC
+    memory with pixel stride ps >= x_off + C, channels x_off .. + C of a
+    wider tensor when ps > C) whose values include exact .5 ties of s_x and
+    values beyond the clamp, its int8 quantisation (channel-padded), packed
+    int8 weights for k = 3 and 1, scale (and bias)."""
     rng = np.random.default_rng(seed)
-    x = torch.from_numpy(rng.normal(0, 40, (B, C, H, W)).astype(np.float32))
-    xq = CI.quantize_activation(x, torch.tensor(1.0))
+    ps = ps or C
+    full = rng.normal(0, 40 * s_x, (B, H, W, ps)).astype(np.float32)
+    n = rng.integers(-140, 140, full.shape).astype(np.float32)
+    ties = rng.uniform(size=full.shape) < 0.3
+    full[ties] = ((n + np.float32(0.5)) * np.float32(s_x))[ties]
+    x = torch.from_numpy(full).permute(0, 3, 1, 2)[:, x_off:x_off + C]
+    sx = torch.tensor(s_x, dtype=torch.float32)
     wq = {k: CI.pack_weights(rng.integers(-127, 128, (O, C, k, k))
                              .astype(np.int8)) for k in (3, 1)}
     scale = torch.from_numpy(rng.uniform(1e-4, 1e-2, O).astype(np.float32))
     b = torch.from_numpy(rng.normal(0, 1, O).astype(np.float32)) \
         if bias else None
-    return xq, wq, scale, b
+    return dict(x=x, s_x=sx, xq=CI.quantize_activation(x, sx), wq=wq,
+                scale=scale, bias=b, x_off=x_off)
 
 
 DTYPES = (torch.int32, torch.bfloat16, torch.float32)
+IN_TYPES = (torch.int8, torch.bfloat16, torch.float32)
 
 
 def _conv_launch(lib, case, runs):
-    """Emulated Kernel 4 on `case` for each (k, stride, dtype) of runs, in
-    one child process -> the outputs [B, Ho, Wo, O]."""
-    xq, wq, scale, bias = case
-    inputs = dict(x=xq.numpy(), w3=wq[3].numpy(), w1=wq[1].numpy(),
-                  scale=scale.numpy(),
-                  cfg=np.array([(k, s, CI._OUT_DTYPES.index(dt))
-                                for k, s, dt in runs]))
-    if bias is not None:
-        inputs["bias"] = bias.numpy()
+    """Emulated Kernel 4 on `case` for each (input dtype, k, stride,
+    output dtype, tile_m) of runs, in one child process -> the outputs
+    [B, Ho, Wo, O]."""
+    full = case["x"].permute(0, 2, 3, 1)
+    full = torch.as_strided(full, full.shape[:3] + (full.stride(2),),
+                            full.stride(), full.storage_offset()
+                            - case["x_off"])
+    inputs = dict(x=case["xq"].numpy(), xf=full.numpy(),
+                  xb=full.to(torch.bfloat16).view(torch.int16).numpy()
+                  .view(np.uint16),
+                  C=case["x"].shape[1], x_off=case["x_off"],
+                  s_x=case["s_x"].numpy().reshape(1),
+                  w3=case["wq"][3].numpy(), w1=case["wq"][1].numpy(),
+                  scale=case["scale"].numpy(),
+                  cfg=np.array([(IN_TYPES.index(it), k, s,
+                                 CI._OUT_DTYPES.index(dt), tile)
+                                for it, k, s, dt, tile in runs]))
+    if case["bias"] is not None:
+        inputs["bias"] = case["bias"].numpy()
     res = _launch(lib, "conv", **inputs)
     outs = []
-    for i, (_, _, dt) in enumerate(runs):
+    for i, run in enumerate(runs):
         out = torch.from_numpy(res[f"out{i}"])
-        outs.append(out.view(torch.bfloat16) if dt == torch.bfloat16
+        outs.append(out.view(torch.bfloat16) if run[3] == torch.bfloat16
                     else out)
     return outs
 
 
-def _conv_equal(got, case, k, stride, dtype):
-    xq, wq, scale, bias = case
-    want = CI.conv_int8_plain(xq, wq[k], scale, bias, k, stride, dtype) \
-        .permute(0, 2, 3, 1).contiguous()
+def _conv_equal(got, case, in_dtype, k, stride, dtype):
+    """The emulated output equals the plain version's bit for bit: the
+    int8 mode's on the quantised activation, the float mode's on the
+    activation in in_dtype."""
+    args = (case["wq"][k], case["scale"], case["bias"], k, stride, dtype)
+    if in_dtype == torch.int8:
+        want = CI.conv_int8_plain(case["xq"], *args)
+    else:
+        want = CI.conv_w8a8_plain(case["x"].to(in_dtype), case["s_x"], *args)
+    want = want.permute(0, 2, 3, 1).contiguous()
     if dtype == torch.bfloat16:
         return torch.equal(got.view(torch.int16), want.view(torch.int16))
     return torch.equal(got, want)
@@ -510,12 +547,40 @@ def _conv_equal(got, case, k, stride, dtype):
     (3, 12, 12, 32, 70, True),     # several pixel tiles, two channel tiles
 ])
 def test_conv_kernel_source_matches_plain(emulated, B, H, W, C, O, bias):
-    """Kernel 4, all three instantiations, against its plain version: the
-    int32 sums and the bf16 and float32 epilogues, bit for bit."""
+    """Kernel 4's int8 mode, all three instantiations, against its plain
+    version: the int32 sums and the bf16 and float32 epilogues, bit for
+    bit; each instantiation at each pixel tile."""
     case = conv_case(B * 1000 + C + O, B, H, W, C, O, bias)
-    runs = [(k, s, dt) for k, s in CI.SHAPES for dt in DTYPES]
-    for (k, s, dt), got in zip(runs, _conv_launch(emulated, case, runs)):
-        assert _conv_equal(got, case, k, s, dt), (k, s, dt)
+    runs = [(torch.int8, k, s, dt, CI.TILES_M[i % 3])
+            for k, s in CI.SHAPES for i, dt in enumerate(DTYPES)]
+    for run, got in zip(runs, _conv_launch(emulated, case, runs)):
+        assert _conv_equal(got, case, *run[:4]), run
+
+
+@pytest.mark.parametrize("B,H,W,C,O,bias,ps,x_off", [
+    (1, 9, 7, 51, 51, True, 51, 0),     # C = 51: 102-byte bf16 rows
+    (2, 8, 8, 64, 64, False, 64, 0),    # 16-byte loads
+    (1, 10, 9, 32, 70, True, 64, 32),   # c2f's channel slice y[:, 32:]
+    (2, 5, 6, 16, 1, True, 48, 16),     # a slice, 16-byte loads, O = 1
+    (1, 5, 40, 24, 64, True, 24, 0),    # 3x3 s1 wider than a 32-pixel tile
+    (1, 6, 7, 96, 40, True, 96, 0),     # two 64-channel stages of a patch
+])
+def test_conv_kernel_float_mode_matches_plain(emulated, B, H, W, C, O, bias,
+                                             ps, x_off):
+    """Kernel 4's float mode (bf16 and float32 input quantised in its
+    load, .5 ties and clamped values included) against its plain version,
+    quantize_activation then conv_int8_plain: the int32 sums and the
+    epilogue in the input's type, all three instantiations, each at each
+    pixel tile per input type (3x3 through the patch of whole rows where
+    the output width fits the tile, else tap by tap), bit for bit."""
+    case = conv_case(B * 100 + C + O + x_off, B, H, W, C, O, bias, ps,
+                     x_off)
+    runs = [(it, k, s, dt, CI.TILES_M[(j + i) % 3])
+            for j, it in enumerate((torch.bfloat16, torch.float32))
+            for k, s in CI.SHAPES
+            for i, dt in enumerate((torch.int32, it, torch.int32))]
+    for run, got in zip(runs, _conv_launch(emulated, case, runs)):
+        assert _conv_equal(got, case, *run[:4]), run
 
 
 @pytest.mark.parametrize("old,new,dtype", [
@@ -532,7 +597,36 @@ def test_conv_kernel_mutation_is_caught(emulated, tmp_path, old, new,
                                         dtype):
     """Kernel 4 with one of these faults must disagree with its plain
     version: the comparison above can fail."""
-    mutant = _mutant(emulated, tmp_path, old, new, source="conv_int8.cu")
+    mutant = _mutant(emulated, tmp_path, old, new, source="conv_int8.cu",
+                     opt="-O0")
     case = conv_case(7, 1, 9, 7, 51, 51)
-    got, = _conv_launch(mutant, case, [(3, 1, dtype)])
-    assert not _conv_equal(got, case, 3, 1, dtype)
+    got, = _conv_launch(mutant, case, [(torch.int8, 3, 1, dtype, 32)])
+    assert not _conv_equal(got, case, torch.int8, 3, 1, dtype)
+
+
+@pytest.mark.parametrize("old,new,in_dtype,C", [
+    # the quantisation rounds half away from zero (ties move)
+    ("rintf(", "roundf(", torch.float32, 51),
+    # the halo is not zeroed: the int8 copy reads 16 bytes of x instead
+    ("src ? 16 : 0", "16", torch.int8, 51),
+    # the halo is not zeroed in the float mode's register load
+    ("src ? s.C - c0 : 0", "s.C - c0", torch.bfloat16, 51),
+    # the halo is not zeroed in the patch's cp.async load (16-byte rows)
+    ("const int n = in ? 2 * (s.C - c0) : 0;", "const int n = 16;",
+     torch.bfloat16, 64),
+    # the ldmatrix reads swizzle their rows off by one
+    ("(lane >> 1) & 3", "((lane >> 1) + 1) & 3", torch.int8, 51),
+    # the products read a stage before its copies have landed
+    ("cp_async_wait<kStages - 2>();", "", torch.int8, 51),
+    # the patch's taps lose their column offset
+    ("st % T / KS * PW + st % KS", "st % T / KS * PW", torch.bfloat16, 51),
+])
+def test_conv_kernel_v2_mutation_is_caught(emulated, tmp_path, old, new,
+                                           in_dtype, C):
+    """Kernel 4 with a fault of its tensor-core pipeline, its patch or its
+    fused quantisation must disagree with its plain version (int32 sums)."""
+    mutant = _mutant(emulated, tmp_path, old, new, source="conv_int8.cu",
+                     opt="-O0")
+    case = conv_case(11, 1, 9, 7, C, 51)
+    got, = _conv_launch(mutant, case, [(in_dtype, 3, 1, torch.int32, 32)])
+    assert not _conv_equal(got, case, in_dtype, 3, 1, torch.int32)
