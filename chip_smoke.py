@@ -7,15 +7,19 @@ Phases, each printing one JSON line with its elapsed seconds:
   device       the card's name and power limit (nvidia-smi)
   build        nvcc builds the kernels in csrc/ (or loads the cached build);
                each kernel's registers and spills as ptxas reports them
-               (Kernel 3 twice: its cv and its kalman136 instantiation)
+               (Kernel 1's two parts, Kernel 3 twice: its cv and its
+               kalman136 instantiation); a spill in Kernel 1, 3 or 4 fails
   kernels      each kernel against its plain PyTorch version on the card, at
                the main path's shapes, on seeded inputs; outputs must be
                equal ("launches" here counts this phase's comparison and
-               timing launches)
+               timing launches); Kernel 3 also with its stage clock on,
+               whose outputs must equal those without it
   main_path    PosePipeline on the card: yolov8n-pose, 640 input, bf16, raw u8
                ingest, 16 frames of 1280x720 from the synthetic scene,
                through process_frame and fetch_outputs; the kernels' launch
-               counts must be 1 (NMS) and 3 (auction) per frame
+               counts must be 1 (NMS) and 3 (auction) per frame. Also times
+               Kernel 1 at B = 1 on the last frame's own candidates
+               (N = 256), with their valid count
   cpu_vs_card  8 frames in fp32 on the CPU (plain versions) and on the card
                (kernels): track ids equal, keypoints within 1e-2 px
   chunk_path   PosePipeline.process_chunk on the card at the headline
@@ -24,7 +28,8 @@ Phases, each printing one JSON line with its elapsed seconds:
                two timed chunks, one bulk copy of the outputs per chunk, then
                fetch_outputs per frame; launches per chunk must be exactly
                nms_keep 1 (grid = K), tracker_chunk 1 and auction 0. Also
-               times Kernel 1 on the chunk's own candidates (B = 128).
+               times Kernel 1 on the chunk's own candidates (B = 128), and
+               Kernel 3 on the last chunk's own inputs with its stage split
   chunk_cpu_vs_card  the chunk path in fp32 at K = 8 on the CPU (plain
                versions) and on the card (Kernels 1 and 3): track ids
                equal, keypoints within 1e-2 px
@@ -97,9 +102,13 @@ Phases, each printing one JSON line with its elapsed seconds:
 Each path's launch counts are set to 0 just before it runs and read just
 after. Then a line {"kernels": [...]} with each kernel's launches (summed
 over the paths' runs), error, times and bound (the tracker chunk's also
-with Re-ID and with kalman136, and the variants it was held in; Kernel 4's
-per chunk of the int8 path, its float mode as "ms" and its int8 mode
-beside it, with its instantiations and yardsticks), and
+with Re-ID and with kalman136, and the variants it was held in, with
+Kernel 3's stage clock split (ops.tracker_chunk.read_stage_clock: us per
+frame of each stage, auction rounds per frame, share of frames at the
+round budget) for the pipeline chunk, the stress chunk, Re-ID at D = 64
+and 128 and kalman136; Kernel 1's also per frame at B = 1 and at
+B = 128; Kernel 4's per chunk of the int8 path, its float mode as "ms"
+and its int8 mode beside it, with its instantiations and yardsticks), and
 last {"ok": true, "device": {...}}. Any failure raises and exits non-zero
 before that line; a hang is cut by faulthandler.
 """
@@ -328,6 +337,18 @@ def tracker_chunk_work(dets, adv, outs, T=128, emb=None, kalman=False):
     return nbytes, ops
 
 
+def stage_split(run, ms_per_frame, frames=CHUNK):
+    """Kernel 3's stage clock over one launch of `run(stage_cycles)` (one
+    stream of `frames` frames): ops.tracker_chunk.read_stage_clock with
+    the us per frame of each stage at the measured ms per frame."""
+    import torch
+    from posebyte_tpu_torch.ops import tracker_chunk as TC
+    clock = torch.zeros(TC.CLOCK_COLUMNS, dtype=torch.int64, device="cuda")
+    out = run(clock)
+    torch.cuda.synchronize()
+    return TC.read_stage_clock(clock, frames, ms_per_frame), out
+
+
 def tracker_chunk_row(dev):
     """Kernel 3 against its plain version at S = 1 and S = 3 streams
     (integer outputs and state equal, floats within 1e-5 px + 1e-6
@@ -354,6 +375,12 @@ def tracker_chunk_row(dev):
     nbytes, ops = tracker_chunk_work(dets, adv, outs)
     b_ms, b_by = bound(nbytes, ops)
     ms = cuda_ms(lambda: TC.tracker_chunk_cuda(*one[:2], cfg, one[2]), 20)
+    split, clocked = stage_split(lambda c: TC.tracker_chunk_cuda(
+        *one[:2], cfg, one[2], stage_cycles=c), ms / CHUNK)
+    m, e = chunk_diff(clocked, TC.tracker_chunk_cuda(*one[:2], cfg, one[2]))
+    if m or e:
+        raise SystemExit(f"tracker_chunk with its stage clock: {m} integer "
+                         f"mismatches, float error {e}")
     return {
         "name": "tracker_chunk", "route": "cuda",
         "source": "posebyte_tpu_torch/csrc/tracker_chunk.cu",
@@ -364,7 +391,7 @@ def tracker_chunk_row(dev):
             *one[:2], cfg, one[2]), 1),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         "shape": f"K={CHUNK},T=128,D=64,S=1 and 3,emitted={emitted}",
-        "bytes": nbytes, "ops": ops}
+        "bytes": nbytes, "ops": ops, "stage_split": split}
 
 
 def phase_kernels(t0):
@@ -466,6 +493,7 @@ def phase_main_path(t0, params, rows):
     import numpy as np
     import torch
     from posebyte_tpu_torch.core import PipelineConfig
+    from posebyte_tpu_torch.ops import nms as N
     from posebyte_tpu_torch.ops.assignment import auction_assign_cuda
     from posebyte_tpu_torch.ops.nms import nms_keep_cuda
     from posebyte_tpu_torch.ops.tracker_chunk import tracker_chunk_cuda
@@ -477,20 +505,32 @@ def phase_main_path(t0, params, rows):
     auction_assign_cuda.launches = 0
     tracker_chunk_cuda.launches = 0
     dets, tracks, ms = [], [], []
-    for fr in frames:
-        t = time.perf_counter()
-        out = pipe.process_frame(fr)
-        res = pipe.fetch_outputs(out, WIDTH, HEIGHT)
-        ms.append((time.perf_counter() - t) * 1e3)
-        dets.append(int(out["det_valid"].sum()))
-        tracks.append(len(res))
-        for r in res:
-            if not (np.isfinite(r.keypoints).all() and np.isfinite(r.bbox)
-                    .all()):
-                raise SystemExit("non-finite track output")
+    nms_calls, nms_keep = [], N.nms_keep    # the candidates pose_nms keeps
+    N.nms_keep = lambda *a: (nms_calls.append(a), nms_keep(*a))[1]
+    try:
+        for fr in frames:
+            t = time.perf_counter()
+            out = pipe.process_frame(fr)
+            res = pipe.fetch_outputs(out, WIDTH, HEIGHT)
+            ms.append((time.perf_counter() - t) * 1e3)
+            dets.append(int(out["det_valid"].sum()))
+            tracks.append(len(res))
+            for r in res:
+                if not (np.isfinite(r.keypoints).all()
+                        and np.isfinite(r.bbox).all()):
+                    raise SystemExit("non-finite track output")
+    finally:
+        N.nms_keep = nms_keep
     launches = {"nms_keep": nms_keep_cuda.launches,
                 "auction": auction_assign_cuda.launches,
                 "tracker_chunk": tracker_chunk_cuda.launches}
+    # Kernel 1 at B = 1 on the last frame's own candidates (N = 256)
+    p, b, v, iou_thr, oks_thr = nms_calls[-1]
+    nms_ms = cuda_ms(lambda: nms_keep_cuda(p, b, v, iou_thr, oks_thr), 200)
+    nms_bound, _ = bound(*nms_work(p.reshape(-1, 17, 3), b.reshape(-1, 4),
+                                   v.reshape(-1), iou_thr))
+    rows["nms_keep"].update(ms_frame=nms_ms, bound_ms_frame=nms_bound,
+                            frame_candidates=int(v.sum()))
     # accuracy: every person of the last frame has a track within 10 px
     kp = np.stack([r.keypoints[:, :2] for r in res]) if res else \
         np.zeros((0, 17, 2), np.float32)
@@ -500,7 +540,9 @@ def phase_main_path(t0, params, rows):
          tracks_per_frame=tracks, launches=launches,
          ms_per_frame_after_warmup=float(np.mean(ms[4:])),
          ms_first_frame=ms[0], last_frame_kp_err_px=errs,
-         peak_mem_mb=torch.cuda.max_memory_allocated() / 2**20)
+         peak_mem_mb=torch.cuda.max_memory_allocated() / 2**20,
+         nms_frame_ms=nms_ms, nms_frame_bound_ms=nms_bound,
+         nms_frame_shape=list(v.shape), nms_frame_valid=int(v.sum()))
     for k, r in rows.items():
         r["launches"] = launches[k]
     if launches != {"nms_keep": FRAMES, "auction": 3 * FRAMES,
@@ -579,6 +621,8 @@ def phase_chunk_path(t0, params, rows):
     from posebyte_tpu_torch.ops.preprocess import letterbox_flat_nhwc
     from posebyte_tpu_torch.ops.tracker_chunk import tracker_chunk_cuda
     from posebyte_tpu_torch.pipeline import PosePipeline
+    from posebyte_tpu_torch.utils.profiling import clocked_split, \
+        recorded_tracker_calls
 
     cfg = PipelineConfig()                            # the card, bf16
     pipe = PosePipeline(cfg, params)
@@ -592,7 +636,8 @@ def phase_chunk_path(t0, params, rows):
         before = {k: fn.launches for k, fn in kernels.items()}
         torch.cuda.synchronize()
         t = time.perf_counter()
-        outs = pipe.process_chunk(frames)
+        with recorded_tracker_calls() as calls:
+            outs = pipe.process_chunk(frames)
         res = pipe.fetch_chunk_outputs(outs, WIDTH, HEIGHT)
         ms.append((time.perf_counter() - t) * 1e3)
         per_chunk.append({k: fn.launches - before[k]
@@ -606,6 +651,11 @@ def phase_chunk_path(t0, params, rows):
                     raise SystemExit("non-finite track output")
     launches = {k: fn.launches for k, fn in kernels.items()}
     peak = torch.cuda.max_memory_allocated() / 2**20
+
+    # Kernel 3 on the last chunk's own inputs: its time and stage clock
+    args, kw = calls[-1]
+    k3_ms = cuda_ms(lambda: tracker_chunk_cuda(*args, **kw), 20)
+    k3_split = clocked_split(calls, k3_ms / CHUNK)
 
     # Kernel 1 on this chunk's own candidates (B = 128)
     dc = pipe.config.detector
@@ -634,11 +684,13 @@ def phase_chunk_path(t0, params, rows):
          last_frame_kp_err_px=errs, peak_mem_mb=peak,
          candidates_per_frame=float(det.valid.sum()) / CHUNK,
          nms_b128_ms=nms_ms, nms_b128_bound_ms=nms_bound,
-         nms_b128_bound_by=nms_by)
+         nms_b128_bound_by=nms_by, tracker_chunk_ms=k3_ms)
     for k, r in rows.items():
         r["launches"] += launches[k]
     r1 = rows["nms_keep"]
     r1["ms_b128"], r1["bound_ms_b128"] = nms_ms, nms_bound
+    rows["tracker_chunk"].update(ms_pipeline=k3_ms,
+                                 stage_split_pipeline=k3_split)
     if any(c != {"nms_keep": 1, "auction": 0, "tracker_chunk": 1}
            for c in per_chunk):
         raise SystemExit(f"chunk path launch counts per chunk {per_chunk}, "
@@ -739,7 +791,7 @@ def phase_reid_kernels(t0, rows, sources, cases):
     import torch
     from posebyte_tpu_torch.core.config import TrackerConfig
     from posebyte_tpu_torch.ops import tracker_chunk as TC
-    res, timed = [], None
+    res, timed = [], {}
     for D in (64, 128):
         cfg = TrackerConfig(max_detections=D, reid_weight=REID_WEIGHT)
         for streams in (1, 3):
@@ -758,10 +810,16 @@ def phase_reid_kernels(t0, rows, sources, cases):
                     raise SystemExit(
                         f"tracker_chunk with Re-ID ({name}, S={streams}, "
                         f"D={D}): {m} integer mismatches, float error {e}")
-                if D == 64 and streams == 1 and name == "descriptor":
-                    timed = (TC._pick(state, 0), TC._pick(dets, 0), adv[0],
-                             emb[0], got[1], cfg)
-    one_state, one_dets, one_adv, one_emb, outs, cfg = timed
+                if streams == 1 and name == "descriptor":
+                    timed[D] = (TC._pick(state, 0), TC._pick(dets, 0),
+                                adv[0], emb[0], got[1], cfg)
+    splits = {}
+    for D, (st, de, ad, em, _, cf) in timed.items():
+        ms = cuda_ms(lambda: TC.tracker_chunk_cuda(st, de, cf, ad, em), 10)
+        splits[f"D={D}"] = stage_split(lambda c: TC.tracker_chunk_cuda(
+            st, de, cf, ad, em, stage_cycles=c), ms / CHUNK)[0]
+        splits[f"D={D}"]["ms"] = ms
+    one_state, one_dets, one_adv, one_emb, outs, cfg = timed[64]
     run = (lambda: TC.tracker_chunk_cuda(one_state, one_dets, cfg, one_adv,
                                          one_emb))
     nbytes, ops = tracker_chunk_work(one_dets, one_adv, outs, emb=one_emb)
@@ -773,7 +831,8 @@ def phase_reid_kernels(t0, rows, sources, cases):
             one_state, one_dets, cfg, one_adv, one_emb), 1),
         bound_ms_reid=b_ms, bound_by_reid=b_by,
         max_abs_err_reid=max(r["max_abs_err"] for r in res),
-        mismatches_reid=sum(r["mismatches"] for r in res))
+        mismatches_reid=sum(r["mismatches"] for r in res),
+        stage_split_reid=splits)
     emit("reid_kernels", t0, cases=res, ms=row["ms_reid"],
          ms_per_frame=row["ms_reid"] / CHUNK,
          plain_ms=row["plain_ms_reid"], bound_ms=b_ms, bound_by=b_by,
@@ -837,6 +896,9 @@ def phase_kalman_kernels(t0, rows, sources, cases):
         ms[name].append(cuda_ms(lambda: TC.tracker_chunk_cuda(
             *one[:2], cfg, one[2]), 20))
     outs = TC.tracker_chunk_cuda(*one[:2], kalman, one[2])[1]
+    split = stage_split(lambda c: TC.tracker_chunk_cuda(
+        *one[:2], kalman, one[2], stage_cycles=c),
+        sum(ms["kalman136"]) / 2 / CHUNK)[0]
     nbytes, ops = tracker_chunk_work(dets, adv, outs, kalman=True)
     b_ms, b_by = bound(nbytes, ops)
     row = rows["tracker_chunk"]
@@ -847,7 +909,8 @@ def phase_kalman_kernels(t0, rows, sources, cases):
         bound_ms_kalman=b_ms, bound_by_kalman=b_by,
         max_abs_err_kalman=max(r["max_abs_err"] for r in res),
         mismatches_kalman=sum(r["mismatches"] for r in res),
-        variants=row["variants"] + ["kalman136", "kalman136+reid"])
+        variants=row["variants"] + ["kalman136", "kalman136+reid"],
+        stage_split_kalman=split)
     emit("kalman_kernels", t0, cases=res, ms_turns=ms,
          ms=row["ms_kalman"], ms_per_frame=row["ms_kalman"] / CHUNK,
          plain_ms=row["plain_ms_kalman"], bound_ms=b_ms, bound_by=b_by,
@@ -1656,9 +1719,10 @@ def phase_int8_cpu_vs_card(t0, qparams):
 
 
 def kernel_label(mangled):
-    """A kernel's mangled name -> nms_keep, auction, tracker_chunk<cv>,
-    tracker_chunk<kalman136> or conv_int8<k,stride,tile_m,input type,A
-    fill> (its template arguments)."""
+    """A kernel's mangled name -> nms_keep<dominance>, nms_keep<greedy>,
+    auction, tracker_chunk<cv>, tracker_chunk<kalman136> or
+    conv_int8<k,stride,tile_m,input type,A fill> (its template
+    arguments)."""
     import re
     m = re.search(r"conv_int8_kernelILi(\d)ELi(\d)ELi(\d+)ELi(\d)ELi(\d)E",
                   mangled)
@@ -1667,7 +1731,10 @@ def kernel_label(mangled):
         fill = ("tap", "patch", "patch_async")[int(m.group(5))]
         return (f"conv_int8<{m.group(1)},{m.group(2)},{m.group(3)},{src},"
                 f"{fill}>")
-    for base in ("nms_keep", "auction", "tracker_chunk"):
+    for part in ("dominance", "greedy"):
+        if f"nms_{part}_kernel" in mangled:
+            return f"nms_keep<{part}>"
+    for base in ("auction", "tracker_chunk"):
         if base + "_kernel" in mangled:
             if base == "tracker_chunk":
                 return base + ("<kalman136>" if "ILb1E" in mangled
@@ -1701,15 +1768,16 @@ def main():
     path, build_s = cuda_lib.build()
     cuda_lib.load()
     ptxas = {kernel_label(k): v for k, v in cuda_lib.ptxas_usage().items()}
-    spills = sorted(k for k, v in ptxas.items() if k.startswith("conv_int8")
+    spills = sorted(k for k, v in ptxas.items()
+                    if k.startswith(("conv_int8", "nms_keep", "tracker_chunk"))
                     and (v.get("spill_stores") or v.get("spill_loads")))
     emit("build", t0, build_s=build_s, cached=build_s == 0.0,
          load_s=time.perf_counter() - t, library=os.path.basename(path),
          ptxas=ptxas, conv_int8_instantiations=sum(
              k.startswith("conv_int8") for k in ptxas),
-         conv_int8_spilling=spills)
+         spilling=spills)
     if spills:
-        raise SystemExit(f"Kernel 4 spills registers in {spills}")
+        raise SystemExit(f"Kernels 1, 3 or 4 spill registers in {spills}")
 
     rows = phase_kernels(t0)
     assets = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -1744,7 +1812,11 @@ def main():
             "instantiations", "ms_int8_mode", "plain_ms_int8_mode",
             "bound_ms_int8_mode", "bound_by_int8_mode",
             "yardstick_two_pass_ms", "yardstick_cudnn_bf16_ms",
-            "yardstick_int_mm_ms")
+            "yardstick_int_mm_ms", "ms_frame", "bound_ms_frame",
+            "frame_candidates", "ms_b128", "bound_ms_b128",
+            "ms_pipeline", "stage_split",
+            "stage_split_pipeline", "stage_split_reid",
+            "stage_split_kalman")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in rows.values()]}), flush=True)
     faulthandler.cancel_dump_traceback_later()

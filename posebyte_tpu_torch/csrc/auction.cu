@@ -12,11 +12,13 @@
 //
 // Design: one block per cost matrix (grid = batch, so a later slice can
 // solve many matrices in one launch). The matrix is copied once into shared
-// memory, transposed to [C][R] so that the row threads of a warp read
+// memory, row-major, so that the lanes computing one row's bid read
 // consecutive banks; assignments, prices and bids stay in shared memory
-// for all rounds, and device memory is touched once each way. Rows bid one
-// thread each, finding best and second best in one pass over the columns;
-// each column's highest bid (lowest row on ties, the JAX argmax's rule)
+// for all rounds, and device memory is touched once each way. Each row's
+// bid is computed by a group of auction_group(C) lanes (8 at C = 64), each
+// scanning every G-th column, merged by shuffles (auction.cuh); the block
+// has R x G threads (at most 1024), so every row of a round bids at once.
+// Each column's highest bid (lowest row on ties, the JAX argmax's rule)
 // is one 64-bit shared-memory atomicMax per bidder, so awarding costs O(1)
 // per column instead of a scan over the rows, and a round has two barriers.
 // The round loop's exit is block-uniform (auction.cuh). The kernel
@@ -29,30 +31,28 @@
 
 namespace {
 
-__global__ void auction_kernel(const float* __restrict__ cost,
-                               const uint8_t* __restrict__ active, int R,
-                               int C, int num_iters, float eps0,
-                               int32_t* __restrict__ row_out,
-                               int32_t* __restrict__ col_out) {
+__global__ void __launch_bounds__(1024)
+    auction_kernel(const float* __restrict__ cost,
+                   const uint8_t* __restrict__ active, int R, int C,
+                   int num_iters, float eps0, int32_t* __restrict__ row_out,
+                   int32_t* __restrict__ col_out) {
   extern __shared__ unsigned long long smem[];
   unsigned long long* col_bid = smem;                       // [C]
-  float* cost_t = reinterpret_cast<float*>(col_bid + C);    // [C][R]
-  float* prices = cost_t + (size_t)R * C;                   // [C]
+  float* cost_s = reinterpret_cast<float*>(col_bid + C);    // [R][C]
+  float* prices = cost_s + (size_t)R * C;                   // [C]
   int* row_assign = reinterpret_cast<int*>(prices + C);     // [R]
   int* col_assign = row_assign + R;                         // [C]
   uint8_t* act = reinterpret_cast<uint8_t*>(col_assign + C);  // [R]
 
   const size_t b = blockIdx.x;
   const float* cost_b = cost + b * (size_t)R * C;
-  for (int i = threadIdx.x; i < R * C; i += blockDim.x) {
-    const int r = i / C, c = i - r * C;
-    cost_t[c * R + r] = cost_b[i];
-  }
+  for (int i = threadIdx.x; i < R * C; i += blockDim.x)
+    cost_s[i] = cost_b[i];
   for (int r = threadIdx.x; r < R; r += blockDim.x)
     act[r] = active[b * R + r];
   __syncthreads();
 
-  posebyte::auction_rounds(cost_t, act, R, C, num_iters, eps0, row_assign,
+  posebyte::auction_rounds(cost_s, act, R, C, num_iters, eps0, row_assign,
                            col_assign, prices, col_bid);
 
   for (int r = threadIdx.x; r < R; r += blockDim.x)
@@ -84,7 +84,8 @@ extern "C" cudaError_t posebyte_auction(const float* cost,
         (int)smem);
     if (e != cudaSuccess) return e;
   }
-  int threads = (R > C ? R : C);
+  int threads = R * posebyte::auction_group(C);
+  if (threads < C) threads = C;
   threads = ((threads + 31) / 32) * 32;
   if (threads > 1024) threads = 1024;
   auction_kernel<<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(

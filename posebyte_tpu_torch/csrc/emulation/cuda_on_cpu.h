@@ -11,8 +11,11 @@
 // thread reaches hangs here as it would on the card.
 //
 // The warp-collective PTX a kernel wraps in small device functions
-// (ldmatrix_x4, mma_s8_16832) is supplied here with a barrier per warp and
-// exchange buffers, the fragment layouts those of the PTX ISA; cp.async
+// (ldmatrix_x4, mma_s8_16832) and the warp intrinsics (__ballot_sync,
+// __any_sync, __shfl_sync, __shfl_xor_sync, __syncwarp) are supplied here with a barrier per warp
+// and exchange buffers, the fragment layouts those of the PTX ISA; the
+// warp must be converged at each, as the full mask asks on the card.
+// clock64 is the host's monotone clock in nanoseconds. cp.async
 // (cp_async_16, cp_async_commit, cp_async_wait) is deferred: a copy lands
 // when a wait_group covers its group, so a kernel that reads a stage it
 // has not waited for reads stale shared memory here as it may on the card.
@@ -25,6 +28,7 @@
 #include <algorithm>
 #include <atomic>
 #include <barrier>
+#include <chrono>
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
@@ -35,13 +39,16 @@
 #include <vector>
 
 struct dim3 {
-  unsigned x = 1, y = 1, z = 1;
+  unsigned x, y, z;
+  dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1)
+      : x(x_), y(y_), z(z_) {}
 };
 inline thread_local dim3 threadIdx;
 inline thread_local dim3 blockIdx;
 inline dim3 blockDim;
 inline std::barrier<>* g_block_barrier = nullptr;
 inline std::atomic<int> g_block_or{0};
+inline std::atomic<int> g_block_count{0};
 // One per warp of the running block: its barrier and two exchange
 // buffers, used in turns by successive collectives (a lane writes one
 // only after the barrier of the collective in between, which every lane
@@ -49,6 +56,7 @@ inline std::atomic<int> g_block_or{0};
 struct EmuWarp {
   std::unique_ptr<std::barrier<>> bar;
   const void* addr[2][32];
+  unsigned v[2][32];
   unsigned a[2][32][4];
   unsigned b[2][32][2];
 };
@@ -62,7 +70,7 @@ inline int g_last_error = 0;
 #define __device__
 #define __host__
 #define __forceinline__ inline
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __restrict__ __restrict
 typedef int cudaError_t;
 typedef void* cudaStream_t;
@@ -94,6 +102,22 @@ inline int __syncthreads_or(int pred) {
   g_block_barrier->arrive_and_wait();
   return r;
 }
+inline int __syncthreads_count(int pred) {
+  if (pred) g_block_count.fetch_add(1);
+  g_block_barrier->arrive_and_wait();
+  const int r = g_block_count.load();
+  g_block_barrier->arrive_and_wait();
+  if (threadIdx.x == 0) g_block_count.store(0);
+  g_block_barrier->arrive_and_wait();
+  return r;
+}
+inline long long clock64() {
+  return std::chrono::duration_cast<std::chrono::nanoseconds>(
+             std::chrono::steady_clock::now().time_since_epoch())
+      .count();
+}
+inline int __popc(unsigned v) { return __builtin_popcount(v); }
+inline int __ffs(unsigned v) { return __builtin_ffs(static_cast<int>(v)); }
 struct alignas(16) float4 {
   float x, y, z, w;
 };
@@ -104,6 +128,10 @@ struct alignas(16) int4 {
   int x, y, z, w;
 };
 inline int4 make_int4(int x, int y, int z, int w) { return int4{x, y, z, w}; }
+struct alignas(8) int2 {
+  int x, y;
+};
+inline int2 make_int2(int x, int y) { return int2{x, y}; }
 struct alignas(8) uint2 {
   unsigned x, y;
 };
@@ -120,6 +148,10 @@ template <class T>
 inline T __ldg(const T* p) { return *p; }
 inline unsigned atomicOr(unsigned* p, unsigned v) {
   return __atomic_fetch_or(p, v, __ATOMIC_SEQ_CST);
+}
+inline unsigned long long atomicAdd(unsigned long long* p,
+                                    unsigned long long v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
 }
 inline unsigned long long atomicMax(unsigned long long* p,
                                     unsigned long long v) {
@@ -169,6 +201,44 @@ inline void cp_async_wait() {
 }
 
 inline EmuWarp& emu_warp() { return (*g_warps)[threadIdx.x >> 5]; }
+// One 32-bit word from every lane of the warp (the exchange of the
+// intrinsics below); lanes past a partial warp's end read 0.
+inline const unsigned* emu_exchange(unsigned word) {
+  EmuWarp& w = emu_warp();
+  const int lane = threadIdx.x & 31, x = t_xbuf;
+  t_xbuf ^= 1;
+  w.v[x][lane] = word;
+  w.bar->arrive_and_wait();
+  return w.v[x];
+}
+inline void __syncwarp(unsigned = 0xffffffffu) {
+  emu_warp().bar->arrive_and_wait();
+}
+inline unsigned __ballot_sync(unsigned mask, int pred) {
+  const int n = std::min<int>(32, blockDim.x - (threadIdx.x & ~31u));
+  const unsigned* v = emu_exchange(pred ? 1u : 0u);
+  unsigned r = 0;
+  for (int l = 0; l < n; ++l) r |= v[l] << l;
+  return r & mask;
+}
+inline int __any_sync(unsigned mask, int pred) {
+  return __ballot_sync(mask, pred) != 0u;
+}
+template <class T>
+inline T __shfl_sync(unsigned, T var, int src) {
+  static_assert(sizeof(T) == 4, "32-bit shuffles only");
+  unsigned u;
+  std::memcpy(&u, &var, 4);
+  const unsigned* v = emu_exchange(u);
+  T r;
+  std::memcpy(&r, &v[src & 31], 4);
+  return r;
+}
+template <class T>
+inline T __shfl_xor_sync(unsigned mask, T var, int lane_mask) {
+  return __shfl_sync(mask, var, static_cast<int>(threadIdx.x & 31) ^
+                                    lane_mask);
+}
 // ldmatrix.sync.aligned.m8n8.x4.shared.b16: lane l gives the address of
 // row l % 8 of matrix l / 8 and gets bytes 4 (l % 4) .. + 3 of row l / 4
 // of matrix j in r[j].
@@ -216,31 +286,43 @@ inline void mma_s8_16832(int (&d)[4], const unsigned (&a)[4], unsigned b0,
 }
 
 // kernel<<<grid, threads, smem, stream>>>(args) becomes
-// emu_launch(grid, threads, smem, [&] { kernel(args); }).
-inline void emu_launch(int grid, int threads, size_t smem,
+// emu_launch(grid, threads, smem, [&] { kernel(args); }). One thread per
+// CUDA thread of a block runs the blocks one after another (x fastest,
+// then y, then z), with a barrier between blocks; shared memory is filled
+// with garbage before each block, and a thread's pending cp.async copies
+// do not outlive its block.
+inline void emu_launch(dim3 grid, int threads, size_t smem,
                        const std::function<void()>& body) {
   if (threads > 1024 || smem > g_smem_limit || smem > sizeof(g_smem)) {
     g_last_error = cudaErrorLaunchOutOfResources;
     return;
   }
   blockDim.x = threads;
-  for (int b = 0; b < grid; ++b) {
-    std::memset(g_smem, 0xAB, sizeof(g_smem));  // shared memory is garbage
-    std::barrier<> bar(threads);
-    g_block_barrier = &bar;
-    std::vector<EmuWarp> warps((threads + 31) / 32);
-    for (size_t w = 0; w < warps.size(); ++w)
-      warps[w].bar = std::make_unique<std::barrier<>>(
-          std::min(32, threads - static_cast<int>(32 * w)));
-    g_warps = &warps;
-    std::vector<std::thread> pool;
-    pool.reserve(threads);
-    for (int t = 0; t < threads; ++t)
-      pool.emplace_back([&, t, b] {
-        threadIdx.x = t;
-        blockIdx.x = b;
+  const unsigned nblocks = grid.x * grid.y * grid.z;
+  std::barrier<> bar(threads);
+  g_block_barrier = &bar;
+  std::vector<EmuWarp> warps((threads + 31) / 32);
+  for (size_t w = 0; w < warps.size(); ++w)
+    warps[w].bar = std::make_unique<std::barrier<>>(
+        std::min(32, threads - static_cast<int>(32 * w)));
+  g_warps = &warps;
+  std::vector<std::thread> pool;
+  pool.reserve(threads);
+  for (int t = 0; t < threads; ++t)
+    pool.emplace_back([&, t] {
+      threadIdx.x = t;
+      for (unsigned b = 0; b < nblocks; ++b) {
+        if (t == 0) std::memset(g_smem, 0xAB, sizeof(g_smem));
+        bar.arrive_and_wait();  // shared memory is garbage
+        blockIdx.x = b % grid.x;
+        blockIdx.y = b / grid.x % grid.y;
+        blockIdx.z = b / (grid.x * grid.y);
+        t_copies.clear();
+        t_groups = 0;
+        t_xbuf = 0;
         body();
-      });
-    for (auto& th : pool) th.join();
-  }
+        bar.arrive_and_wait();  // the block has ended on every thread
+      }
+    });
+  for (auto& th : pool) th.join();
 }

@@ -36,8 +36,9 @@ _c_void_p, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # name: (restype, argtypes)
     "posebyte_nms_keep": (_c_int, [_c_void_p, _c_void_p, _c_void_p,
-                                   _c_void_p, _c_int, _c_int, _c_float,
-                                   _c_float, _c_void_p, _c_void_p]),
+                                   _c_void_p, _c_void_p, _c_int, _c_int,
+                                   _c_float, _c_float, _c_void_p,
+                                   _c_void_p]),
     "posebyte_nms_keep_max_n": (_c_int, []),
     "posebyte_auction": (_c_int, [_c_void_p, _c_void_p, _c_void_p,
                                   _c_void_p, _c_int, _c_int, _c_int, _c_int,

@@ -7,8 +7,9 @@ max(area_i, area_j, 32^2) over box areas and falloff
 exp(-d^2 / (2 scale^2 4 sigma^2)). Greedy suppression in score order keeps
 i when no kept earlier candidate overlaps it.
 
-The keep mask is Kernel 1 on a CUDA tensor (nms_keep_cuda, csrc/nms_keep.cu)
-and its plain version (nms_overlap_matrix + _greedy_keep) on a CPU tensor.
+The keep mask is Kernel 1 on a CUDA tensor (nms_keep_cuda, csrc/nms_keep.cu:
+a dominance bitmask, then a greedy pass over it) and its plain version
+(nms_overlap_matrix + _greedy_keep) on a CPU tensor.
 """
 from __future__ import annotations
 
@@ -89,7 +90,9 @@ def nms_keep_cuda(poses: torch.Tensor, boxes: torch.Tensor,
                   oks_threshold: float) -> torch.Tensor:
     """Kernel 1 on CUDA tensors: poses [B, N, 17, 3] f32, boxes [B, N, 4]
     f32, valid [B, N] bool (the batch axis may be left out) -> keep
-    [B, N] bool. Raises on a bad input or a launch error."""
+    [B, N] bool. One call launches the kernel's two parts (the dominance
+    bitmask [B, N, ceil(N / 32)], scratch allocated here, then the greedy
+    pass) and counts one launch. Raises on a bad input or a launch error."""
     unbatched = poses.dim() == 3
     if unbatched:
         poses, boxes, valid = poses[None], boxes[None], valid[None]
@@ -110,11 +113,13 @@ def nms_keep_cuda(poses: torch.Tensor, boxes: torch.Tensor,
             and valid.is_contiguous()):
         raise ValueError("nms_keep_cuda: inputs must be contiguous")
     keep = torch.empty((B, N), dtype=torch.bool, device=poses.device)
+    mask = torch.empty((B, N, (N + 31) // 32), dtype=torch.int32,
+                       device=poses.device)
     with torch.cuda.device(poses.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = lib.posebyte_nms_keep(
             poses.data_ptr(), boxes.data_ptr(), valid.data_ptr(),
-            keep.data_ptr(), B, N, float(iou_threshold),
+            mask.data_ptr(), keep.data_ptr(), B, N, float(iou_threshold),
             float(oks_threshold), _SIG4.ctypes.data, stream)
     cuda_lib.check(status, "nms_keep")
     nms_keep_cuda.launches += 1

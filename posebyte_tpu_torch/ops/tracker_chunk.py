@@ -25,9 +25,14 @@ tracks like every other field; with "cv" they pass through unchanged.
 
 tracker_chunk_cuda is Kernel 3 (csrc/tracker_chunk.cu), one launch per
 chunk with one block per stream, for either motion model, with or without
-Re-ID, with the torso tier; tracker_chunk_plain is its plain version, a
-loop of tracker_step and extract_outputs_device with the advance blend of
-the serving scan, which also runs torso_tier=False. The dispatcher
+Re-ID, with the torso tier. Its optional stage_cycles ([S, CLOCK_COLUMNS]
+int64 on the card, or [CLOCK_COLUMNS] for one stream) is the kernel's
+stage clock: the launch adds each stage's clock cycles, in the order of
+STAGES, then each tier's auction rounds and the frames in which a tier
+used its whole round budget; read_stage_clock turns it into a split.
+tracker_chunk_plain is its plain version, a loop of tracker_step and
+extract_outputs_device with the advance blend of the serving scan, which
+also runs torso_tier=False. The dispatcher
 tracker_chunk takes the kernel for CUDA tensors and the plain version for
 CPU tensors only.
 """
@@ -51,6 +56,14 @@ from .kalman import CV_LOST_DECAY, CV_MEASUREMENT_NOISE, CV_PROCESS_NOISE, \
 from .oks import _sig_sq
 
 OUT_KEYS = ("ids", "scores", "poses", "boxes", "emit", "num_active")
+# The stage clock's columns (csrc/tracker_chunk.cu, enum Stage): cycles
+# per stage, then rounds per tier (3), then frames at the round budget per
+# tier (3). "state" is the pool's load and store, and the save and restore
+# around a frame that does not advance.
+STAGES = ("state", "detections", "predict", "centres", "gate_tier1_cost",
+          "tier1_auction", "tier2", "tier3", "update", "births", "dedup",
+          "outputs")
+CLOCK_COLUMNS = len(STAGES) + 6
 # State fields the kernel carries in its table of state pointers, with
 # their dtypes (the embeddings pass through unchanged without Re-ID).
 # kf_mean and kf_cov have pointers of their own at the end of the table,
@@ -155,6 +168,27 @@ def _float_args(config: TrackerConfig, T: int) -> np.ndarray:
     ]).astype(np.float32)
 
 
+def read_stage_clock(stage_cycles: torch.Tensor, frames: int,
+                     ms_per_frame: float | None = None) -> dict:
+    """The split of a stage clock summed over `frames` stream-frames:
+    cycles per frame and share of each stage, auction rounds per frame and
+    the share of frames at the round budget per tier, and with the
+    kernel's measured ms per frame of one stream the us per frame of each
+    stage (its share of that time)."""
+    c = [int(v) for v in stage_cycles.reshape(-1, CLOCK_COLUMNS).sum(0)]
+    n = len(STAGES)
+    total = sum(c[:n]) or 1
+    out = {"cycles_per_frame": {s: c[i] / frames
+                                for i, s in enumerate(STAGES)},
+           "share": {s: c[i] / total for i, s in enumerate(STAGES)},
+           "rounds_per_frame": [c[n + t] / frames for t in range(3)],
+           "budget_share": [c[n + 3 + t] / frames for t in range(3)]}
+    if ms_per_frame is not None:
+        out["us_per_frame"] = {s: c[i] / total * ms_per_frame * 1e3
+                               for i, s in enumerate(STAGES)}
+    return out
+
+
 def smem_bytes(T: int, D: int, reid: bool) -> int:
     """Shared memory of one Kernel 3 block (the kernel's own layout)."""
     return cuda_lib.load().posebyte_tracker_chunk_smem_bytes(T, D, int(reid))
@@ -163,10 +197,12 @@ def smem_bytes(T: int, D: int, reid: bool) -> int:
 def tracker_chunk_cuda(state: TrackerState, dets: Detections,
                        config: TrackerConfig = TrackerConfig(),
                        advance: torch.Tensor | None = None,
-                       det_embeddings: torch.Tensor | None = None):
+                       det_embeddings: torch.Tensor | None = None,
+                       stage_cycles: torch.Tensor | None = None):
     """Kernel 3 on CUDA tensors: one launch for the whole chunk, one block
-    per stream. Raises on a CPU tensor, a bad shape or dtype, an option
-    that is not ported, or a launch error."""
+    per stream; with stage_cycles its stage clock is added into that
+    tensor (the outputs are the same). Raises on a CPU tensor, a bad shape
+    or dtype, an option that is not ported, or a launch error."""
     _check_options(config, det_embeddings, "tracker_chunk_cuda", kernel=True)
     reid = det_embeddings is not None
     kalman = config.motion_model == "kalman136"
@@ -175,10 +211,12 @@ def tracker_chunk_cuda(state: TrackerState, dets: Detections,
         state, dets = _stack([state]), _stack([dets])
         advance = None if advance is None else advance[None]
         det_embeddings = None if not reid else det_embeddings[None]
+        stage_cycles = None if stage_cycles is None else stage_cycles[None]
     dev = dets.poses.device
     tensors = [getattr(dets, f.name) for f in dataclasses.fields(dets)] + \
         [getattr(state, f.name) for f in dataclasses.fields(state)]
-    tensors += [t for t in (advance, det_embeddings) if t is not None]
+    tensors += [t for t in (advance, det_embeddings, stage_cycles)
+                if t is not None]
     if not all(t.is_cuda and t.device == dev for t in tensors):
         raise ValueError("tracker_chunk_cuda: all inputs must be on one "
                          "CUDA device")
@@ -211,6 +249,8 @@ def tracker_chunk_cuda(state: TrackerState, dets: Detections,
         shapes["advance"] = (advance, (S, K))
     if reid:
         shapes["det_embeddings"] = (det_embeddings, (S, K, D, E))
+    if stage_cycles is not None:
+        shapes["stage_cycles"] = (stage_cycles, (S, CLOCK_COLUMNS))
     for name, (t, shape) in shapes.items():
         if tuple(t.shape) != shape:
             raise ValueError(f"tracker_chunk_cuda: {name} has shape "
@@ -226,10 +266,16 @@ def tracker_chunk_cuda(state: TrackerState, dets: Detections,
         dtypes.append((advance, torch.bool))
     if reid:
         dtypes.append((det_embeddings, torch.float32))
+    if stage_cycles is not None:
+        dtypes.append((stage_cycles, torch.int64))
+        if not stage_cycles.is_contiguous():
+            raise ValueError("tracker_chunk_cuda: stage_cycles must be "
+                             "contiguous (the kernel adds into it)")
     if any(t.dtype != dt for t, dt in dtypes):
         raise TypeError("tracker_chunk_cuda: float32 poses, velocities, "
                         "scores, embeddings and filter, int32 counters and "
-                        "ids, bool valid, active and advance")
+                        "ids, bool valid, active and advance, int64 "
+                        "stage_cycles")
     if min(S, K, T, D) <= 0 or smem_bytes(T, D, reid) > _MAX_SMEM:
         raise ValueError(f"tracker_chunk_cuda: T={T}, D={D} does not fit "
                          "one block's shared memory"
@@ -261,7 +307,8 @@ def tracker_chunk_cuda(state: TrackerState, dets: Detections,
         kf_in = [state.kf_mean.contiguous(), state.kf_cov.contiguous()]
         kf = kf_in + [torch.empty_like(t) for t in kf_in] + [torch.empty(
             (S, 2, T, C.TOTAL_STATE_DIM), dtype=torch.float32, device=dev)]
-    table = ins + ins_state + outs_state + list(outs.values()) + kf
+    table = ins + ins_state + outs_state + list(outs.values()) + kf + \
+        [stage_cycles]
     ptrs = (ctypes.c_void_p * len(table))(
         *(None if t is None else t.data_ptr() for t in table))
     iargs = np.asarray([S, K, T, D, config.min_hits, config.max_age,

@@ -29,12 +29,19 @@ lines, every number per frame:
               against the profiled and the unprofiled wall time; Kernel
               4's device ms per frame (int8)
   kernels     the ten kernels with the most device time per frame
+  tracker_stages  (--chunk) Kernel 3's stage clock: the unprofiled run's
+              tracker launches made again on their own inputs with the
+              clock on, each stage's cycles and share per frame, its us
+              per frame (its share of Kernel 3's profiled device time),
+              and each auction tier's rounds per frame and share of
+              frames at the round budget
 Device numbers come only from the profiler's CUDA activity; where it
 records none they print as null ("not measured").
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import time
@@ -51,6 +58,46 @@ def _frames(n: int, width: int = 1280, height: int = 720, persons: int = 6,
     from .synthetic import SyntheticScene, render_frame
     scene = SyntheticScene(persons, width, height, seed=seed)
     return [render_frame(scene.step(), width, height) for _ in range(n)]
+
+
+@contextlib.contextmanager
+def recorded_tracker_calls():
+    """While active, every call the pipeline makes of the chunk tracker
+    (pipeline.runner's tracker_chunk) is recorded: yields the list of its
+    (args, kwargs), which are tracker_chunk_cuda's, to be launched again
+    with the stage clock. The calls themselves, and the kernels' launch
+    counts, are unchanged."""
+    from ..pipeline import runner
+    orig = runner.tracker_chunk
+    calls = []
+
+    def record(*args, **kwargs):
+        calls.append((args, kwargs))
+        return orig(*args, **kwargs)
+
+    runner.tracker_chunk = record
+    try:
+        yield calls
+    finally:
+        runner.tracker_chunk = orig
+
+
+def clocked_split(calls, ms_per_frame=None) -> dict:
+    """The recorded Kernel 3 launches made again with the stage clock
+    on: the split (ops.tracker_chunk.read_stage_clock) over their frames."""
+    import torch
+    from ..ops import tracker_chunk as TC
+    clock, frames = None, 0
+    for args, kwargs in calls:
+        scores = args[1].scores
+        streams = scores.shape[0] if scores.dim() == 3 else 1
+        if clock is None:
+            clock = torch.zeros((streams, TC.CLOCK_COLUMNS),
+                                dtype=torch.int64, device=scores.device)
+        TC.tracker_chunk_cuda(*args, **kwargs, stage_cycles=(
+            clock if scores.dim() == 3 else clock[0]))
+        frames += scores.numel() // scores.shape[-1]
+    return TC.read_stage_clock(clock, frames, ms_per_frame)
 
 
 def _run(pipe, frames, w, h, chunk=0):
@@ -124,7 +171,8 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
 
     t0 = time.perf_counter()
-    _run(pipe, frames[warm:], W, H, args.chunk)
+    with recorded_tracker_calls() as calls:
+        _run(pipe, frames[warm:], W, H, args.chunk)
     wall = (time.perf_counter() - t0) * 1e3 / args.frames
     print(json.dumps({"phase": "steady", "frames": args.frames,
                       "chunk": args.chunk, "reid": args.reid,
@@ -180,6 +228,12 @@ def main(argv=None) -> int:
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:10]
     print(json.dumps({"phase": "kernels", "top_device_ms_per_frame": [
         [name[:80], ms / n] for name, ms in top]}), flush=True)
+    if args.chunk:
+        k3 = sum(ms for k, ms in per_kernel.items()
+                 if "tracker_chunk" in k) / n if measured else None
+        print(json.dumps({"phase": "tracker_stages",
+                          "kernel3_ms_per_frame": k3,
+                          **clocked_split(calls, k3)}), flush=True)
     return 0
 
 

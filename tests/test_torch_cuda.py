@@ -246,6 +246,45 @@ def test_tracker_chunk_kernel_matches_plain(card, streams, K, T, D, crowd):
     assert_chunk_equal(got, want)
 
 
+@pytest.mark.parametrize("streams,motion,reid", [
+    (None, "cv", False), (3, "kalman136", True)])
+def test_tracker_chunk_stage_clock_leaves_outputs_unchanged(card, streams,
+                                                            motion, reid):
+    """Kernel 3 with its stage clock on gives the same outputs, bit for
+    bit, as without; the clock counts every stage and each tier's
+    rounds, and adds into the tensor it is given."""
+    import dataclasses
+    from posebyte_tpu_torch.core.config import TrackerConfig
+    from posebyte_tpu_torch.ops import tracker_chunk as TC
+    dets, adv, state, emb = tracker_chunk_inputs(card, 6, 64, 128, 64, 40,
+                                                 streams, reid=True)
+    cfg = TrackerConfig(motion_model=motion,
+                        reid_weight=0.3 if reid else 0.0)
+    emb = emb if reid else None
+    S = 1 if streams is None else streams
+    clock = torch.zeros((S, TC.CLOCK_COLUMNS), dtype=torch.int64,
+                        device=card)
+    want = TC.tracker_chunk_cuda(state, dets, cfg, adv, emb)
+    got = TC.tracker_chunk_cuda(state, dets, cfg, adv, emb,
+                                stage_cycles=clock[0] if streams is None
+                                else clock)
+    torch.cuda.synchronize()
+    (gs, go), (ws, wo) = got, want
+    for f in dataclasses.fields(gs):
+        assert torch.equal(getattr(gs, f.name), getattr(ws, f.name)), f.name
+    for k in wo:
+        assert torch.equal(go[k], wo[k]), k
+    n = len(TC.STAGES)
+    assert (clock[:, :n] > 0).all() and (clock[:, n] > 0).all()
+    once = clock.clone()
+    TC.tracker_chunk_cuda(state, dets, cfg, adv, emb, stage_cycles=(
+        clock[0] if streams is None else clock))
+    torch.cuda.synchronize()
+    assert (clock[:, n:n + 3] == 2 * once[:, n:n + 3]).all()
+    split = TC.read_stage_clock(clock, 2 * S * 64)
+    assert abs(sum(split["share"].values()) - 1.0) < 1e-9
+
+
 @pytest.mark.parametrize("streams,D", [(None, 64), (3, 64), (None, 128),
                                        (3, 128)])
 def test_tracker_chunk_kernel_reid_matches_plain(card, streams, D):

@@ -56,10 +56,11 @@ d = dict(np.load(sys.argv[3]))
 if sys.argv[2] == "nms":
     B, n = d["valid"].shape
     keep = np.zeros((B, n), np.uint8)
+    mask = np.full((B, n, (n + 31) // 32), 0xA5A5A5A5, np.uint32)
     st = fn("posebyte_nms_keep")(
         d["poses"].ctypes.data, d["boxes"].ctypes.data,
-        d["valid"].ctypes.data, keep.ctypes.data, B, n, float(d["iou"]),
-        float(d["oks"]), d["sig4"].ctypes.data, None)
+        d["valid"].ctypes.data, mask.ctypes.data, keep.ctypes.data, B, n,
+        float(d["iou"]), float(d["oks"]), d["sig4"].ctypes.data, None)
     np.savez(sys.argv[4], status=st, keep=keep)
 elif sys.argv[2] == "conv":
     # one launch per row (in_type, k, stride, out_type, tile_m) of cfg, on
@@ -99,7 +100,8 @@ else:
     # inputs in0..in16 in the pointer table's order; in4 (the detections'
     # embeddings) is absent without Re-ID and passed as a null pointer;
     # with kalman136 the filter (kf_mean, kf_cov) and NaN-filled outputs
-    # and scratch end the table, else five null pointers
+    # and scratch follow, else five null pointers; last the stage clock
+    # (clock, [S, CLOCK_COLUMNS] int64, returned as "clock") or null
     ins = [d.get(f"in{i}") for i in range(17)]
     S, K, D = ins[1].shape
     outs = [np.zeros_like(a) for a in ins[5:]] + [
@@ -113,13 +115,14 @@ else:
         kf = [m, d["kf_cov"], np.full_like(m, np.nan), np.full_like(m, np.nan),
               np.full((S, 2) + m.shape[1:], np.nan, np.float32)]
         outs += kf[2:4]
-    table = ins + outs[:18] + kf
+    table = ins + outs[:18] + kf + [d.get("clock")]
     ptrs = (ctypes.c_void_p * len(table))(
         *(None if a is None else a.ctypes.data for a in table))
     st = fn("posebyte_tracker_chunk")(ptrs, d["iargs"].ctypes.data,
                                       d["fargs"].ctypes.data, None)
-    np.savez(sys.argv[4], status=st, **{f"out{i}": a
-                                        for i, a in enumerate(outs)})
+    extra = {"clock": d["clock"]} if "clock" in d else {}
+    np.savez(sys.argv[4], status=st, **extra, **{f"out{i}": a
+                                                 for i, a in enumerate(outs)})
 """
 
 
@@ -201,6 +204,7 @@ def candidates(seed, n, n_valid, chain=0):
     ([(2, 100, 80, 30), (3, 100, 100, 0), (4, 100, 0, 0)], (0.5, 0.6)),
     ([(5, 512, 500, 0)], (0.65, 0.45)),
     ([(6, 1, 1, 0)], (0.55, 0.55)),
+    ([(7, 512, 500, 40), (8, 512, 512, 30)], (0.55, 0.55)),  # N = 512, B > 1
 ])
 def test_nms_kernel_source_matches_plain(emulated, cases, thr):
     sets = [candidates(*c) for c in cases]
@@ -212,6 +216,21 @@ def test_nms_kernel_source_matches_plain(emulated, cases, thr):
         want = N.nms_keep_plain(torch.from_numpy(p), torch.from_numpy(bx),
                                 torch.from_numpy(v), *thr).numpy()
         np.testing.assert_array_equal(got[b], want)
+
+
+def test_nms_kernel_mutation_is_caught(emulated, tmp_path):
+    """A greedy pass that ignores the suppressed bit (every valid rank
+    kept and suppressing) must disagree with the plain version on a
+    suppression chain."""
+    mutant = _mutant(emulated, tmp_path, "if ((live & ~s) >> r & 1u) {",
+                     "if (live >> r & 1u) {", source="nms_keep.cu")
+    poses, boxes, valid = candidates(1, 256, 256, 40)
+    got = _launch(mutant, "nms", poses=poses[None], boxes=boxes[None],
+                  valid=valid[None].astype(np.uint8), iou=0.55, oks=0.55,
+                  sig4=N._SIG4)["keep"].astype(bool)
+    want = N.nms_keep_plain(torch.from_numpy(poses), torch.from_numpy(boxes),
+                            torch.from_numpy(valid), 0.55, 0.55).numpy()
+    assert not np.array_equal(got[0], want)
 
 
 def cost_matrix(seed, R, C, locked, ties):
@@ -244,6 +263,23 @@ def test_auction_kernel_source_matches_plain(emulated, cases):
                                     torch.from_numpy(active))
         np.testing.assert_array_equal(got["row"][b], row.numpy())
         np.testing.assert_array_equal(got["col"][b], col.numpy())
+
+
+def test_auction_kernel_mutation_is_caught(emulated, tmp_path):
+    """auction_rounds with its lanes' merge breaking ties toward the
+    higher column (Kernels 2 and 3 share it) must disagree with the plain
+    version on costs with exact ties."""
+    mutant = _mutant(emulated, tmp_path, "(ob == best && oc < best_c)",
+                     "(ob == best && oc > best_c)", source="auction.cuh",
+                     unit="auction.cu")
+    mats = [cost_matrix(s, 128, 64, 0.6, True) for s in (1, 3)]
+    got = _launch(mutant, "auction", cost=np.stack([m[0] for m in mats]),
+                  active=np.stack([m[1] for m in mats]).astype(np.uint8),
+                  iters=A.auction_iterations(128),
+                  eps0=np.float32(1.0 / 129))
+    rows = [A.auction_assign(torch.from_numpy(c), torch.from_numpy(a))[0]
+            .numpy() for c, a in mats]
+    assert not np.array_equal(got["row"], np.stack(rows))
 
 
 def tracker_inputs(state, dets, cfg, advance, embs=None):
@@ -305,6 +341,7 @@ def assert_tracker_equal(got, state, outs):
     (1, 12, 32, 16, 12),        # advance holes, crowded frames
     (0, 12, 16, 16, 12),        # slot exhaustion
     (1, 5, 128, 64, 40),        # the main path's pool, crowded frames
+    (2, 10, 24, 12, 10),        # D not a multiple of 16: loads, no cp.async
 ])
 def test_tracker_kernel_source_matches_plain(emulated, seed, K, T, D,
                                              crowd):
@@ -319,37 +356,112 @@ def test_tracker_kernel_source_matches_plain(emulated, seed, K, T, D,
         assert int(want_outs["num_active"].max()) == T   # the pool is full
 
 
+@pytest.mark.parametrize("reid", [False, True])
+def test_tracker_kernel_empty_and_full_frames(emulated, reid):
+    """Kernel 3 (cv, with and without Re-ID) on frames with no valid
+    detection and a frame with all D valid (the padding detections then
+    count as detections: zero poses, zero scores), against the plain
+    version."""
+    state, dets, advance = tracker_case(3, 10, 32, 16, 12)
+    valid = dets.valid.clone()
+    valid[2:4] = False
+    valid[6] = True
+    dets = dataclasses.replace(dets, valid=valid)
+    embs = torch.from_numpy(reid_embeddings_case(3, valid.numpy())) \
+        if reid else None
+    cfg = TrackerConfig(max_tracks=32, max_detections=16,
+                        reid_weight=0.3 if reid else 0.0)
+    want_state, want_outs = TC.tracker_chunk_plain(state, dets, cfg, advance,
+                                                   embs)
+    got = _launch(emulated, "tracker",
+                  **tracker_inputs(state, dets, cfg, advance, embs))
+    assert_tracker_equal(got, want_state, want_outs)
+    assert advance[2:4].all() and advance[6]
+    assert want_outs["num_active"][2:4].min() > 0     # tracks that age
+
+
+def test_tracker_kernel_stage_clock_leaves_outputs_unchanged(emulated):
+    """Kernel 3 with its stage clock on (kalman136, Re-ID, advance holes)
+    gives the outputs of a run without it, and counts every stage and the
+    tier-1 rounds of each stream."""
+    state, dets, advance, embs, cfg = kalman_case(2, 12, 32, 16, 12, True)
+    inputs = tracker_inputs(state, dets, cfg, advance, embs)
+    plain = _launch(emulated, "tracker", **inputs)
+    clock = np.zeros((1, TC.CLOCK_COLUMNS), np.int64)
+    got = _launch(emulated, "tracker", **inputs, clock=clock)
+    clock = got.pop("clock")
+    assert sorted(got) == sorted(plain)
+    for k in plain:
+        np.testing.assert_array_equal(got[k], plain[k], err_msg=k)
+    n = len(TC.STAGES)
+    assert (clock[0, :n] > 0).all() and clock[0, n] > 0
+    split = TC.read_stage_clock(torch.from_numpy(clock), 12)
+    assert abs(sum(split["share"].values()) - 1.0) < 1e-9
+
+
 def _mutant(emulated, tmp_path, old, new, source="tracker_chunk.cu",
-            opt="-O1"):
+            opt="-O1", unit=None):
     """The emulated library with a kernel's source (Kernel 3's unless
-    named) mutated (old -> new), compiled at g++ level `opt`."""
+    named) mutated (old -> new), compiled at g++ level `opt`; a mutated
+    header (auction.cuh) is compiled into the source `unit` that includes
+    it."""
     _, out = emulated
     with open(os.path.join(cuda_lib.CSRC, source)) as f:
         src = _to_cpp(f.read())
     bad = src.replace(old, new)
     assert bad != src
-    (out / "tracker_mutant.cpp").write_text(bad)
+    mdir = tmp_path / "mutant"
+    mdir.mkdir(exist_ok=True)
+    if unit is not None:
+        (mdir / source).write_text(bad)
+        with open(os.path.join(cuda_lib.CSRC, unit)) as f:
+            bad = _to_cpp(f.read())
+    (mdir / "mutant.cpp").write_text(bad)
     lib = tmp_path / "libmutant.so"
     r = subprocess.run([shutil.which("g++"), "-std=c++20", opt, "-fPIC",
                         "-shared", "-pthread", "-ffp-contract=off", "-I",
-                        str(out), "-o", str(lib),
-                        str(out / "tracker_mutant.cpp")],
+                        str(out), "-o", str(lib), str(mdir / "mutant.cpp")],
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
     return str(lib), out
 
 
 def test_tracker_kernel_mutation_is_caught(emulated, tmp_path):
-    """A kernel with a broken rank rule (a detection counts itself) must
-    disagree with the plain version: the comparison above can fail."""
-    mutant = _mutant(emulated, tmp_path, "for (int e = 0; e < d; ++e)",
-                     "for (int e = 0; e <= d; ++e)")
+    """A kernel with a broken rank rule (a new detection counts itself)
+    must disagree with the plain version: the comparison above can fail."""
+    mutant = _mutant(emulated, tmp_path,
+                     "list_b[ob + __popc(bb & below)] = i;",
+                     "list_b[ob + __popc(bb & (below | (1u << lane)))] = i;")
     state, dets, advance = tracker_case(1, 12, 32, 16, 12)
     cfg = TrackerConfig(max_tracks=32, max_detections=16)
     want_state, want_outs = TC.tracker_chunk_plain(state, dets, cfg, advance)
-    got = _launch(mutant, "tracker",
-                  **tracker_inputs(state, dets, cfg, advance))
-    with pytest.raises(AssertionError):
+    with pytest.raises(AssertionError):   # a mismatch, or a crash
+        got = _launch(mutant, "tracker",
+                      **tracker_inputs(state, dets, cfg, advance))
+        assert_tracker_equal(got, want_state, want_outs)
+
+
+@pytest.mark.parametrize("old,new", [
+    # every ballot rank counts the thread itself
+    ("const unsigned below = (1u << lane) - 1u;",
+     "const unsigned below = (2u << lane) - 1u;"),
+    # the lists' warp offsets off by one warp (out of index order)
+    ("      if (w < warp) {", "      if (w <= warp) {"),
+    # the prefetched detections read before their copy is waited for
+    ("      cp_async_wait<0>();\n", "      ;\n"),
+])
+def test_tracker_kernel_v2_mutation_is_caught(emulated, tmp_path, old,
+                                               new):
+    """A kernel with broken ranks, lists or prefetch must disagree with
+    the plain version: the comparison above can fail. The case has T = 64
+    (two warps of slots) and D = 16 (prefetched)."""
+    mutant = _mutant(emulated, tmp_path, old, new)
+    state, dets, advance = tracker_case(1, 12, 64, 16, 12)
+    cfg = TrackerConfig(max_tracks=64, max_detections=16)
+    want_state, want_outs = TC.tracker_chunk_plain(state, dets, cfg, advance)
+    with pytest.raises(AssertionError):   # a mismatch, or a crash
+        got = _launch(mutant, "tracker",
+                      **tracker_inputs(state, dets, cfg, advance))
         assert_tracker_equal(got, want_state, want_outs)
 
 
@@ -384,7 +496,7 @@ def test_tracker_kernel_reid_source_matches_plain(emulated, seed, K, T, D,
 @pytest.mark.parametrize("old,new", [
     ("*plane = u / nrm;", "*plane = u;"),              # EMA without renorm
     ("te > 1e-12f && dq > 1e-12f", "te > 1e-12f"),   # not co-visible
-    ("s.er[j] = __ldg(femb + i * 3);", ""),           # new track's red
+    ("s.er[ti] = femb[di * 3];", ""),                 # new track's red
 ])
 def test_tracker_kernel_reid_mutation_is_caught(emulated, tmp_path, old,
                                                 new):
