@@ -7,17 +7,26 @@ Phases, each printing one JSON line with its elapsed seconds:
   device       the card's name and power limit (nvidia-smi)
   build        nvcc builds the kernels in csrc/ (or loads the cached build);
                each kernel's registers and spills as ptxas reports them
-               (Kernel 1's two parts, Kernel 3 twice: its cv and its
-               kalman136 instantiation); a spill in Kernel 1, 3 or 4 fails
+               (Kernel 1's dominance part and its greedy pass once per
+               count of register words a lane, Kernel 3 twice: its cv and
+               its kalman136 instantiation); a spill in any of Kernels
+               1-4 fails
   kernels      each kernel against its plain PyTorch version on the card, at
                the main path's shapes, on seeded inputs; outputs must be
                equal ("launches" here counts this phase's comparison and
                timing launches); Kernel 3 also with its stage clock on,
-               whose outputs must equal those without it
+               whose outputs must equal those without it; Kernel 1 also at
+               N = 1024, Kernel 2 also with its round count (rounds_out).
+               Each kernel's "ms" is its call as the pipeline makes it
+               (CUDA events around calls issued back to back), its
+               "device_ms" the same calls run back to back by a device kept
+               ahead of the host (utils/timing.py)
   main_path    PosePipeline on the card: yolov8n-pose, 640 input, bf16, raw u8
                ingest, 16 frames of 1280x720 from the synthetic scene,
                through process_frame and fetch_outputs; the kernels' launch
-               counts must be 1 (NMS) and 3 (auction) per frame. Also times
+               counts must be 1 (NMS) and 3 (auction) per frame. Kernel 2's
+               rounds per tier over the 16 frames (mean, maximum, share at
+               the budget), from the path's own matrices. Also times
                Kernel 1 at B = 1 on the last frame's own candidates
                (N = 256), with their valid count
   cpu_vs_card  8 frames in fp32 on the CPU (plain versions) and on the card
@@ -155,58 +164,20 @@ def emit(phase, t0, **kw):
 
 
 def cuda_ms(fn, reps):
-    """Mean device ms per call over `reps` calls (CUDA events), after one
-    warm-up call."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    """Mean ms per call over `reps` calls issued back to back (CUDA events),
+    after one warm-up call: the call as the pipeline makes it, the host's
+    time per call where the host is slower than the device. A row's "ms"
+    keeps this meaning (utils/timing.py::call_ms)."""
+    from posebyte_tpu_torch.utils.timing import call_ms
+    return call_ms(fn, reps)
 
 
-def nms_case(rng, n=256, n_valid=240, chain=30):
-    """Score-sorted candidates as decode gives them: clusters of person
-    poses with jitter (dense overlaps), a chain of shifted copies in which
-    each suppresses the next (deeper than the TPU kernel's 24 sweeps), and
-    an invalid tail."""
-    import numpy as np
-    from posebyte_tpu_torch.utils.synthetic import POSE_OFFSETS
-    n_cl = n // 12
-    centers = rng.uniform(60, 580, (n_cl, 2))
-    scales = rng.uniform(40, 160, n_cl)
-    cl = rng.integers(0, n_cl, n)
-    poses = np.zeros((n, 17, 3), np.float32)
-    poses[..., :2] = (centers[cl][:, None] + POSE_OFFSETS[None]
-                      * scales[cl][:, None, None]
-                      + rng.normal(0, 4, (n, 17, 2)))
-    poses[..., 2] = rng.uniform(0, 1, (n, 17))
-    for i in range(chain):
-        poses[i, :, :2] = 320 + POSE_OFFSETS * 100 + np.float32(i * 9.0) \
-            * np.array([1, 0], np.float32)
-        poses[i, :, 2] = 0.9
-    boxes = np.stack([poses[..., 0].min(1), poses[..., 1].min(1),
-                      poses[..., 0].max(1), poses[..., 1].max(1)], -1)
-    valid = np.zeros(n, bool)
-    valid[:n_valid] = True
-    return poses, boxes.astype(np.float32), valid
-
-
-def auction_case(rng, R=128, C=64):
-    """Tracker-tier cost matrix: quantised costs (exact ties), ~60% locked
-    pairs (1e9), a fully locked row and column, inactive rows."""
-    import numpy as np
-    cost = np.round(rng.uniform(0, 1, (R, C)) * 8) / 8
-    cost[rng.uniform(size=(R, C)) < 0.6] = 1e9
-    cost[3, :] = 1e9
-    cost[:, 5] = 1e9
-    active = rng.uniform(size=R) > 0.1
-    return cost.astype(np.float32), active
+def device_ms(fn, reps):
+    """Mean device ms per call over `reps` calls with the device kept
+    ahead of the host by a sleep kernel, so that it runs them back to back
+    (utils/timing.py::device_ms): a row's "device_ms"."""
+    from posebyte_tpu_torch.utils import timing
+    return timing.device_ms(fn, reps)
 
 
 def conv_int8_work(B, H, W, C, O, k, stride, bias=True, in_bytes=1):
@@ -375,6 +346,8 @@ def tracker_chunk_row(dev):
     nbytes, ops = tracker_chunk_work(dets, adv, outs)
     b_ms, b_by = bound(nbytes, ops)
     ms = cuda_ms(lambda: TC.tracker_chunk_cuda(*one[:2], cfg, one[2]), 20)
+    dev_ms = device_ms(lambda: TC.tracker_chunk_cuda(*one[:2], cfg, one[2]),
+                       20)
     split, clocked = stage_split(lambda c: TC.tracker_chunk_cuda(
         *one[:2], cfg, one[2], stage_cycles=c), ms / CHUNK)
     m, e = chunk_diff(clocked, TC.tracker_chunk_cuda(*one[:2], cfg, one[2]))
@@ -386,7 +359,7 @@ def tracker_chunk_row(dev):
         "source": "posebyte_tpu_torch/csrc/tracker_chunk.cu",
         "replaces": "posebyte_tpu/ops/pallas_tracker.py:648",
         "mismatches": mism, "max_abs_err": err,
-        "ms": ms, "ms_per_frame": ms / CHUNK,
+        "ms": ms, "device_ms": dev_ms, "ms_per_frame": ms / CHUNK,
         "plain_ms": cuda_ms(lambda: TC.tracker_chunk_plain(
             *one[:2], cfg, one[2]), 1),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
@@ -400,6 +373,7 @@ def phase_kernels(t0):
     from posebyte_tpu_torch.ops import assignment as A
     from posebyte_tpu_torch.ops import nms as N
     from posebyte_tpu_torch.ops import tracker_chunk as TC
+    from posebyte_tpu_torch.utils.synthetic import auction_case, nms_case
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
@@ -418,6 +392,17 @@ def phase_kernels(t0):
         torch.cuda.synchronize()
         mism += int((got != want).sum())
         sweeps = max(sweeps, greedy_sweeps(p, b, v))
+    # N = 1024 (max_candidates at the reference's cap): the greedy pass
+    # reads its mask from shared memory. Its own generator, so that the
+    # cases after it are those of earlier runs.
+    p_np, b_np, v_np = nms_case(np.random.default_rng(SEED + 1), n=1024,
+                                n_valid=1000, chain=40)
+    p4, b4, v4 = (torch.from_numpy(a).to(dev) for a in (p_np, b_np, v_np))
+    got = N.nms_keep_cuda(p4, b4, v4, 0.55, 0.55)
+    want = N.nms_keep_plain(p4, b4, v4, 0.55, 0.55)
+    torch.cuda.synchronize()
+    mism += int((got != want).sum())
+    b4_ms, _ = bound(*nms_work(p4, b4, v4, 0.55))
     p, b, v = (torch.from_numpy(a).to(dev) for a in cases[0])
     nbytes, ops = nms_work(p, b, v, 0.55)
     b_ms, b_by = bound(nbytes, ops)
@@ -427,20 +412,34 @@ def phase_kernels(t0):
         "replaces": "posebyte_tpu/ops/pallas_kernels.py:226",
         "mismatches": mism, "max_abs_err": float(mism > 0),
         "ms": cuda_ms(lambda: N.nms_keep_cuda(p, b, v, 0.55, 0.55), 200),
+        "device_ms": device_ms(lambda: N.nms_keep_cuda(p, b, v, 0.55, 0.55),
+                               200),
         "plain_ms": cuda_ms(lambda: N.nms_keep_plain(p, b, v, 0.55, 0.55),
                             10),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-        "shape": f"N=256,sweeps={sweeps}", "bytes": nbytes, "ops": ops}
+        "ms_n1024": cuda_ms(lambda: N.nms_keep_cuda(p4, b4, v4, 0.55, 0.55),
+                            50),
+        "device_ms_n1024": device_ms(
+            lambda: N.nms_keep_cuda(p4, b4, v4, 0.55, 0.55), 50),
+        "plain_ms_n1024": cuda_ms(
+            lambda: N.nms_keep_plain(p4, b4, v4, 0.55, 0.55), 2),
+        "bound_ms_n1024": b4_ms,
+        "shape": f"N=256,sweeps={sweeps}; N=1024,valid=1000",
+        "bytes": nbytes, "ops": ops}
 
     # ---- Kernel 2: auction, 128 x 64 -------------------------------------
     mism, err, rounds = 0, 0, 0
+    counted = torch.zeros(1, dtype=torch.int32, device=dev)
     for _ in range(3):
         c_np, a_np = auction_case(rng)
         c, a = torch.from_numpy(c_np).to(dev), torch.from_numpy(a_np).to(dev)
         r1, c1 = A.auction_assign_cuda(c, a)
+        r3, c3 = A.auction_assign_cuda(c[None], a[None], rounds=counted)
         r2, c2, rounds = A.auction_assign_rounds(c, a)
         torch.cuda.synchronize()
-        mism += int((r1 != r2).sum()) + int((c1 != c2).sum())
+        mism += int((r1 != r2).sum()) + int((c1 != c2).sum()) + \
+            int((r3[0] != r2).sum()) + int((c3[0] != c2).sum()) + \
+            int(int(counted[0]) != rounds)
         err = max(err, int((r1 - r2).abs().max()), int((c1 - c2).abs().max()))
     R, Cc = c.shape
     nbytes = R * Cc * 4 + R + 4 * (R + Cc)
@@ -453,6 +452,7 @@ def phase_kernels(t0):
         "replaces": "posebyte_tpu/ops/pallas_kernels.py:98",
         "mismatches": mism, "max_abs_err": float(err),
         "ms": cuda_ms(lambda: A.auction_assign_cuda(c, a), 200),
+        "device_ms": device_ms(lambda: A.auction_assign_cuda(c, a), 200),
         "plain_ms": cuda_ms(lambda: A.auction_assign(c, a), 5),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         "shape": f"R={R},C={Cc}", "rounds": rounds, "bytes": nbytes,
@@ -467,7 +467,8 @@ def phase_kernels(t0):
     emit("kernels", t0, kernels=[
         {"name": r["name"], "launches": done[k] - start[k],
          "mismatches": r["mismatches"], "max_abs_err": r["max_abs_err"],
-         "kernel_ms": r["ms"], "ms_per_frame": r.get("ms_per_frame"),
+         "kernel_ms": r["ms"], "device_ms": r["device_ms"],
+         "ms_per_frame": r.get("ms_per_frame"),
          "plain_ms": r["plain_ms"],
          "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
          "shape": r["shape"]} for k, r in rows.items()])
@@ -498,6 +499,7 @@ def phase_main_path(t0, params, rows):
     from posebyte_tpu_torch.ops.nms import nms_keep_cuda
     from posebyte_tpu_torch.ops.tracker_chunk import tracker_chunk_cuda
     from posebyte_tpu_torch.pipeline import PosePipeline
+    from posebyte_tpu_torch.tracker import step as S
 
     gts, frames = make_frames(FRAMES)
     pipe = PosePipeline(PipelineConfig(), params)     # the card, bf16
@@ -507,6 +509,13 @@ def phase_main_path(t0, params, rows):
     dets, tracks, ms = [], [], []
     nms_calls, nms_keep = [], N.nms_keep    # the candidates pose_nms keeps
     N.nms_keep = lambda *a: (nms_calls.append(a), nms_keep(*a))[1]
+    auction_calls, auction = [], S.auction_assign_cuda   # 3 tiers a frame
+
+    def record(*a):
+        out = auction(*a)
+        auction_calls.append(a + out)
+        return out
+    S.auction_assign_cuda = record
     try:
         for fr in frames:
             t = time.perf_counter()
@@ -521,9 +530,11 @@ def phase_main_path(t0, params, rows):
                     raise SystemExit("non-finite track output")
     finally:
         N.nms_keep = nms_keep
+        S.auction_assign_cuda = auction
     launches = {"nms_keep": nms_keep_cuda.launches,
                 "auction": auction_assign_cuda.launches,
                 "tracker_chunk": tracker_chunk_cuda.launches}
+    tiers = auction_tier_rounds(auction_calls)
     # Kernel 1 at B = 1 on the last frame's own candidates (N = 256)
     p, b, v, iou_thr, oks_thr = nms_calls[-1]
     nms_ms = cuda_ms(lambda: nms_keep_cuda(p, b, v, iou_thr, oks_thr), 200)
@@ -542,7 +553,9 @@ def phase_main_path(t0, params, rows):
          ms_first_frame=ms[0], last_frame_kp_err_px=errs,
          peak_mem_mb=torch.cuda.max_memory_allocated() / 2**20,
          nms_frame_ms=nms_ms, nms_frame_bound_ms=nms_bound,
-         nms_frame_shape=list(v.shape), nms_frame_valid=int(v.sum()))
+         nms_frame_shape=list(v.shape), nms_frame_valid=int(v.sum()),
+         auction_rounds_per_tier=tiers)
+    rows["auction"]["rounds_main_path"] = tiers
     for k, r in rows.items():
         r["launches"] = launches[k]
     if launches != {"nms_keep": FRAMES, "auction": 3 * FRAMES,
@@ -551,6 +564,34 @@ def phase_main_path(t0, params, rows):
                          f"{FRAMES}, {3 * FRAMES} and 0")
     if max(errs) > 10.0:
         raise SystemExit(f"tracks miss the synthetic people: {errs}")
+
+
+def auction_tier_rounds(calls):
+    """Kernel 2's rounds per tier over the per-frame path's auctions
+    (cost, active, row, col per call, three tiers a frame in order): each
+    tier's matrices again in one launch with rounds_out, whose assignments
+    must equal the path's; the mean and maximum rounds and the share of
+    frames at the budget min(3R, 50)."""
+    import torch
+    from posebyte_tpu_torch.ops import assignment as A
+    tiers = []
+    for t in range(3):
+        sel = calls[t::3]
+        cost = torch.stack([c[0] for c in sel])
+        rounds = torch.zeros(len(sel), dtype=torch.int32, device=cost.device)
+        row, col = A.auction_assign_cuda(
+            cost, torch.stack([c[1] for c in sel]), rounds=rounds)
+        if not (torch.equal(row, torch.stack([c[2] for c in sel]))
+                and torch.equal(col, torch.stack([c[3] for c in sel]))):
+            raise SystemExit(f"tier {t + 1}: Kernel 2 with rounds_out gave "
+                             "other assignments than the path's")
+        r = rounds.cpu().numpy()
+        budget = A.auction_iterations(cost.shape[1])
+        tiers.append({"tier": t + 1, "frames": len(r),
+                      "mean": float(r.mean()), "max": int(r.max()),
+                      "share_at_budget": float((r >= budget).mean()),
+                      "shape": list(cost.shape[1:])})
+    return tiers
 
 
 def phase_cpu_vs_card(t0, params):
@@ -1317,7 +1358,8 @@ def like_path_input(x, B, scale, dev):
     return full.permute(0, 3, 1, 2)[:, base:base + C]
 
 
-FIELDS = ("convs", "ms", "ms_int8_mode", "ms_two_pass", "plain_ms",
+FIELDS = ("convs", "ms", "device_ms", "ms_int8_mode", "ms_two_pass",
+          "plain_ms",
           "plain_ms_int8_mode", "bytes", "bytes_int8_mode", "ops",
           "cudnn_bf16_ms", "int_mm_ms")
 
@@ -1385,6 +1427,8 @@ def phase_int8_kernels(t0, qparams, rows):
               wq, scale, bias, k, stride)
         ms = cuda_ms(lambda: CI.conv_w8a8_cuda(x, s_x, wq, scale, bias, k,
                                                stride), 10)
+        dev_ms = device_ms(lambda: CI.conv_w8a8_cuda(
+            x, s_x, wq, scale, bias, k, stride), 10)
         ms_i8 = cuda_ms(lambda: CI.conv_int8_cuda(xq, wq, scale, bias, k,
                                                   stride), 10)
         two = cuda_ms(lambda: CI.conv_int8_cuda(CI.quantize_activation(
@@ -1412,7 +1456,8 @@ def phase_int8_kernels(t0, qparams, rows):
             "C": C, "ps": CI.pixel_stride(x), "O": O, "count": n,
             "tile_m": CI.tile_m(dev, CHUNK, (H - 1) // stride + 1,
                                 (W - 1) // stride + 1, O, patch=k == 3),
-            "ms": ms, "ms_int8_mode": ms_i8, "ms_two_pass": two,
+            "ms": ms, "device_ms": dev_ms, "ms_int8_mode": ms_i8,
+            "ms_two_pass": two,
             "plain_ms": plain, "plain_ms_int8_mode": plain_i8,
             "bound_ms": b_ms, "bound_by": b_by, "bound_ms_int8_mode": b_i8,
             "bound_by_int8_mode": b_i8_by, "cudnn_bf16_ms": cudnn,
@@ -1421,7 +1466,8 @@ def phase_int8_kernels(t0, qparams, rows):
             "tops_int8_mode": work[0][1] / ms_i8 / 1e9})
         agg = inst.setdefault(f"{k}x{k}s{stride}", dict.fromkeys(FIELDS, 0))
         agg.setdefault("int_mm_shapes_refused", 0)
-        for f, v in (("convs", 1), ("ms", ms), ("ms_int8_mode", ms_i8),
+        for f, v in (("convs", 1), ("ms", ms), ("device_ms", dev_ms),
+                     ("ms_int8_mode", ms_i8),
                      ("ms_two_pass", two), ("plain_ms", plain),
                      ("plain_ms_int8_mode", plain_i8),
                      ("bytes", work[0][0]), ("bytes_int8_mode", work[1][0]),
@@ -1449,7 +1495,8 @@ def phase_int8_kernels(t0, qparams, rows):
         "source": "posebyte_tpu_torch/csrc/conv_int8.cu",
         "replaces": "posebyte_tpu/ops/pallas_conv.py:56",
         "mismatches": mism, "max_abs_err": err, "launches": 0,
-        "ms": total["ms"], "ms_per_frame": total["ms"] / CHUNK,
+        "ms": total["ms"], "device_ms": total["device_ms"],
+        "ms_per_frame": total["ms"] / CHUNK,
         "plain_ms": total["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None,
         "ms_int8_mode": total["ms_int8_mode"],
@@ -1719,8 +1766,9 @@ def phase_int8_cpu_vs_card(t0, qparams):
 
 
 def kernel_label(mangled):
-    """A kernel's mangled name -> nms_keep<dominance>, nms_keep<greedy>,
-    auction, tracker_chunk<cv>, tracker_chunk<kalman136> or
+    """A kernel's mangled name -> nms_keep<dominance>, nms_keep<greedy,
+    register words a lane>, auction, tracker_chunk<cv>,
+    tracker_chunk<kalman136> or
     conv_int8<k,stride,tile_m,input type,A fill> (its template
     arguments)."""
     import re
@@ -1731,9 +1779,11 @@ def kernel_label(mangled):
         fill = ("tap", "patch", "patch_async")[int(m.group(5))]
         return (f"conv_int8<{m.group(1)},{m.group(2)},{m.group(3)},{src},"
                 f"{fill}>")
-    for part in ("dominance", "greedy"):
-        if f"nms_{part}_kernel" in mangled:
-            return f"nms_keep<{part}>"
+    if "nms_dominance_kernel" in mangled:
+        return "nms_keep<dominance>"
+    m = re.search(r"nms_greedy_kernelILi(\d+)E", mangled)
+    if m:
+        return f"nms_keep<greedy,{m.group(1)}>"
     for base in ("auction", "tracker_chunk"):
         if base + "_kernel" in mangled:
             if base == "tracker_chunk":
@@ -1769,7 +1819,8 @@ def main():
     cuda_lib.load()
     ptxas = {kernel_label(k): v for k, v in cuda_lib.ptxas_usage().items()}
     spills = sorted(k for k, v in ptxas.items()
-                    if k.startswith(("conv_int8", "nms_keep", "tracker_chunk"))
+                    if k.startswith(("conv_int8", "nms_keep", "auction",
+                                     "tracker_chunk"))
                     and (v.get("spill_stores") or v.get("spill_loads")))
     emit("build", t0, build_s=build_s, cached=build_s == 0.0,
          load_s=time.perf_counter() - t, library=os.path.basename(path),
@@ -1777,7 +1828,7 @@ def main():
              k.startswith("conv_int8") for k in ptxas),
          spilling=spills)
     if spills:
-        raise SystemExit(f"Kernels 1, 3 or 4 spill registers in {spills}")
+        raise SystemExit(f"Kernels 1-4 spill registers in {spills}")
 
     rows = phase_kernels(t0)
     assets = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -1805,8 +1856,10 @@ def main():
     phase_int8_cpu_vs_card(t0, qparams)
 
     keys = ("name", "route", "source", "replaces", "launches",
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "variants", "ms_reid", "plain_ms_reid",
+            "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "rounds", "rounds_main_path",
+            "ms_n1024", "device_ms_n1024", "plain_ms_n1024",
+            "bound_ms_n1024", "variants", "ms_reid", "plain_ms_reid",
             "bound_ms_reid", "bound_by_reid", "ms_kalman", "plain_ms_kalman",
             "bound_ms_kalman", "bound_by_kalman", "ms_per_frame",
             "instantiations", "ms_int8_mode", "plain_ms_int8_mode",

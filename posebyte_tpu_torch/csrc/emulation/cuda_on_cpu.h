@@ -12,7 +12,8 @@
 //
 // The warp-collective PTX a kernel wraps in small device functions
 // (ldmatrix_x4, mma_s8_16832) and the warp intrinsics (__ballot_sync,
-// __any_sync, __shfl_sync, __shfl_xor_sync, __syncwarp) are supplied here with a barrier per warp
+// __any_sync, __shfl_sync, __shfl_xor_sync, __shfl_up_sync, __syncwarp) are
+// supplied here with a barrier per warp
 // and exchange buffers, the fragment layouts those of the PTX ISA; the
 // warp must be converged at each, as the full mask asks on the card.
 // clock64 is the host's monotone clock in nanoseconds. cp.async
@@ -149,6 +150,9 @@ inline T __ldg(const T* p) { return *p; }
 inline unsigned atomicOr(unsigned* p, unsigned v) {
   return __atomic_fetch_or(p, v, __ATOMIC_SEQ_CST);
 }
+inline unsigned atomicAnd(unsigned* p, unsigned v) {
+  return __atomic_fetch_and(p, v, __ATOMIC_SEQ_CST);
+}
 inline unsigned long long atomicAdd(unsigned long long* p,
                                     unsigned long long v) {
   return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
@@ -238,6 +242,12 @@ template <class T>
 inline T __shfl_xor_sync(unsigned mask, T var, int lane_mask) {
   return __shfl_sync(mask, var, static_cast<int>(threadIdx.x & 31) ^
                                     lane_mask);
+}
+template <class T>
+inline T __shfl_up_sync(unsigned mask, T var, unsigned delta) {
+  const int lane = static_cast<int>(threadIdx.x & 31);
+  const T up = __shfl_sync(mask, var, lane - static_cast<int>(delta));
+  return lane >= static_cast<int>(delta) ? up : var;
 }
 // ldmatrix.sync.aligned.m8n8.x4.shared.b16: lane l gives the address of
 // row l % 8 of matrix l / 8 and gets bytes 4 (l % 4) .. + 3 of row l / 4

@@ -30,15 +30,18 @@
 //    __ballot_sync of "j dominates k" is word w of row j of the bitmask
 //    [B, N, W] in device memory (the wrapper allocates it), written by
 //    lane 0. No atomics; an invalid row's words are never read.
-//  2 greedy pass, one warp per set (grid = B): the warp copies the set's
-//    bitmask into shared memory and walks it 32 ranks at a time. For word
-//    v every lane holds row 32v + lane's bits of word v (the dominance
-//    inside the word), gathers them by shuffles and decides the word's 32
-//    ranks in order from its suppressed bits (each kept rank ORs in its
-//    row); then lane w > v ORs word w of every kept row of word v into the
-//    suppressed word w it holds. A word without a valid rank is skipped.
-//    No block barrier: the pass costs W words of 32 register steps plus
-//    the ORs.
+//  2 greedy pass, one warp per set (grid = B), for any N up to kMaxN: the
+//    warp walks the set's bitmask 32 ranks at a time, from shared memory
+//    where it fits (N <= 1350; copied there first), else from device
+//    memory (L2 holds it: the dominance kernel has just written it). Lane
+//    l holds words l, l + 32, ... of the suppressed set in registers. For
+//    word v every lane holds row 32v + lane's bits of word v (the
+//    dominance inside the word), gathers them by shuffles and decides the
+//    word's 32 ranks in order from its suppressed bits (each kept rank ORs
+//    in its row); then each lane ORs word w of every kept row of word v
+//    into each suppressed word w > v it holds. A word without a valid rank
+//    is skipped. No block barrier: the pass costs W words of 32 register
+//    steps plus the ORs.
 // Pairs whose IoU alone decides skip the OKS, and only co-visible
 // keypoints are evaluated; both shortcuts give the same mask. The
 // arithmetic keeps the JAX order: dx*dx + dy*dy with no contraction (built
@@ -52,7 +55,15 @@ namespace {
 
 constexpr int kNumKp = 17;
 constexpr int kPoseStride = kNumKp * 3;
-constexpr int kMaxN = 512;
+// The greedy pass holds the removed set in registers, at most 32 words a
+// lane: W <= 1024 words, N <= 32768 candidates, 32 times the reference's
+// cap of 1024. That is the kernel's one limit on N; at it one set's mask
+// takes 128 MiB, a 128-frame chunk's 16 GiB of the card's 80.
+constexpr int kMaxWordsPerLane = 32;
+constexpr int kMaxN = 32 * 32 * kMaxWordsPerLane;
+// The most dynamic shared memory a block may use on sm_90 (232,448 bytes),
+// the only target the library is built for.
+constexpr size_t kMaxSmem = 232448;
 constexpr int kDomThreads = 256;          // 8 warps, 4 rows each
 constexpr int kPlanes = kPoseStride + 4;  // 51 pose values + 4 box values
 
@@ -61,6 +72,9 @@ struct Sig4 {
 };
 
 __host__ __device__ inline int n_words(int N) { return (N + 31) / 32; }
+// Where the greedy pass's copy of the mask starts in its shared memory:
+// after the W valid words, on a 16-byte boundary.
+__host__ __device__ inline int mask_offset(int W) { return (W + 3) & ~3; }
 
 // Shared memory of a dominance block: its rows [32][kPlanes], its
 // candidates [kPlanes][32], and their valid flags.
@@ -164,72 +178,113 @@ __global__ void __launch_bounds__(kDomThreads)
   }
 }
 
+// The greedy pass over one set. Lane l holds words l, l + 32, ... of the
+// removed set in registers: WPL of them (a power of two >= ceil(W / 32),
+// a template argument so that every index into supp[] is static). Word v
+// is always supp[0] of lane v % 32 while its 32 ranks are decided: after
+// each 32 words the lanes shift their words down by one slot. The valid
+// words sit in shared memory; the bitmask in shared memory too where the
+// launcher chose so (smem_mask; it then copies it first), else the warp
+// reads it from device memory, where the dominance kernel just wrote it
+// and L2 still holds it.
+template <int WPL>
 __global__ void __launch_bounds__(32)
     nms_greedy_kernel(const uint8_t* __restrict__ valid,
                       const uint32_t* __restrict__ mask,
-                      uint8_t* __restrict__ keep, int N) {
-  extern __shared__ uint32_t gsm[];         // the set's mask [N][W]
+                      uint8_t* __restrict__ keep, int N, int smem_mask) {
+  extern __shared__ uint32_t gsm[];
   const int W = n_words(N);
   const size_t b = blockIdx.x;
   const int lane = threadIdx.x;
-  const uint32_t* m = mask + b * N * W;
-  if ((N * W) % 4 == 0) {                   // 16-byte pieces, 8 in flight
-    const uint4* m4 = reinterpret_cast<const uint4*>(m);
-    uint4* g4 = reinterpret_cast<uint4*>(gsm);
+  uint32_t* vwords = gsm;                   // [W] valid words
+  const uint32_t* m = mask + b * N * W;     // the set's mask [N][W]
+  if (smem_mask) {
+    uint32_t* ms = gsm + mask_offset(W);
+    const size_t n = (size_t)N * W;
+    if (n % 4 == 0) {                       // 16-byte pieces, 8 in flight
+      const uint4* m4 = reinterpret_cast<const uint4*>(m);
+      uint4* s4 = reinterpret_cast<uint4*>(ms);
 #pragma unroll 8
-    for (int i = lane; i < N * W / 4; i += 32) g4[i] = m4[i];
-  } else {
+      for (size_t i = lane; i < n / 4; i += 32) s4[i] = m4[i];
+    } else {
 #pragma unroll 8
-    for (int i = lane; i < N * W; i += 32) gsm[i] = m[i];
+      for (size_t i = lane; i < n; i += 32) ms[i] = m[i];
+    }
+    m = ms;
   }
-  // lane w < W holds valid word w and the suppressed word w
-  uint32_t vword = 0u, supp = 0u;
 #pragma unroll 4
   for (int w = 0; w < W; ++w) {
     const int k = 32 * w + lane;
     const uint32_t v =
         __ballot_sync(0xffffffffu, k < N && valid[b * N + k] != 0);
-    if (lane == w) vword = v;
+    if (lane == 0) vwords[w] = v;
   }
   __syncwarp();
-  for (int v = 0; v < W; ++v) {
-    const uint32_t live = __shfl_sync(0xffffffffu, vword, v);
-    if (live == 0u) continue;               // no valid rank in word v
-    const int i = 32 * v + lane;
-    const uint32_t inner = i < N ? gsm[i * W + v] : 0u;
-    uint32_t s = __shfl_sync(0xffffffffu, supp, v);
-    uint32_t kept = 0u;
+  uint32_t supp[WPL];
 #pragma unroll
-    for (int r = 0; r < 32; ++r) {          // the same on every lane
-      const uint32_t row = __shfl_sync(0xffffffffu, inner, r);
-      if ((live & ~s) >> r & 1u) {          // valid and not suppressed
-        kept |= 1u << r;
-        s |= row;
+  for (int j = 0; j < WPL; ++j) supp[j] = 0u;
+  for (int v0 = 0; v0 < W; v0 += 32) {      // supp[j]: word v0 + 32 j + lane
+    for (int l = 0; l < 32 && v0 + l < W; ++l) {
+      const int v = v0 + l;
+      const uint32_t live = vwords[v];
+      if (live == 0u) continue;             // no valid rank in word v
+      const int i = 32 * v + lane;
+      const uint32_t inner = i < N ? m[(size_t)i * W + v] : 0u;
+      uint32_t s = __shfl_sync(0xffffffffu, supp[0], l);
+      uint32_t kept = 0u;
+#pragma unroll
+      for (int r = 0; r < 32; ++r) {        // the same on every lane
+        const uint32_t row = __shfl_sync(0xffffffffu, inner, r);
+        if ((live & ~s) >> r & 1u) {        // valid and not suppressed
+          kept |= 1u << r;
+          s |= row;
+        }
+      }
+      if (lane == l) supp[0] = s;
+      // every later word w this lane holds ORs in the kept rows' word w
+#pragma unroll
+      for (int j = 0; j < WPL; ++j) {
+        const int w = v0 + 32 * j + lane;
+        if (w > v && w < W) {
+          for (uint32_t rest = kept; rest != 0u; rest &= rest - 1u)
+            supp[j] |= m[(size_t)(32 * v + __ffs(rest) - 1) * W + w];
+        }
       }
     }
-    if (lane == v) supp = s;
-    if (lane > v && lane < W) {
-      for (uint32_t rest = kept; rest != 0u; rest &= rest - 1u)
-        supp |= gsm[(32 * v + __ffs(rest) - 1) * W + lane];
+    // words v0 .. v0 + 31 are decided: write their keep bits, shift
+    const int k0 = 32 * v0;
+    for (int l = 0; l < 32 && v0 + l < W; ++l) {
+      const uint32_t s = __shfl_sync(0xffffffffu, supp[0], l);
+      const int k = k0 + 32 * l + lane;
+      if (k < N) keep[b * N + k] = ((vwords[v0 + l] & ~s) >> lane) & 1u;
     }
+#pragma unroll
+    for (int j = 0; j + 1 < WPL; ++j) supp[j] = supp[j + 1];
   }
-  for (int w = 0; w < W; ++w) {
-    const uint32_t s = __shfl_sync(0xffffffffu, supp, w);
-    const uint32_t live = __shfl_sync(0xffffffffu, vword, w);
-    const int k = 32 * w + lane;
-    if (k < N) keep[b * N + k] = ((live & ~s) >> lane) & 1u;
+}
+
+// The greedy pass with WPL register words a lane. Its mask is read from
+// shared memory where the valid words and the whole mask fit there (N <=
+// 1350), else from device memory: a route chosen by size.
+template <int WPL>
+cudaError_t launch_greedy(const uint8_t* valid, const uint32_t* mask,
+                          uint8_t* keep, int B, int N, cudaStream_t st) {
+  const int W = n_words(N);
+  const size_t words = (size_t)mask_offset(W) + (size_t)N * W;
+  const int smem_mask = words * sizeof(uint32_t) <= kMaxSmem;
+  const size_t smem = (smem_mask ? words : W) * sizeof(uint32_t);
+  auto kernel = nms_greedy_kernel<WPL>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
   }
+  kernel<<<B, 32, smem, st>>>(valid, mask, keep, N, smem_mask);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int posebyte_nms_keep_max_n() { return kMaxN; }
-
-// poses [B, N, 17, 3] f32, boxes [B, N, 4] f32, valid [B, N] u8 (0/1),
-// mask [B, N, ceil(N / 32)] u32 scratch, sig4_host: 17 floats (4 sigma^2)
-// in host memory; keep [B, N] u8 (0/1). Launches the dominance kernel and
-// then the greedy pass on `stream`; returns the first launch status that
-// is not cudaSuccess.
 extern "C" cudaError_t posebyte_nms_keep(const float* poses,
                                          const float* boxes,
                                          const uint8_t* valid,
@@ -238,7 +293,8 @@ extern "C" cudaError_t posebyte_nms_keep(const float* poses,
                                          float oks_thr,
                                          const float* sig4_host,
                                          void* stream) {
-  if (B <= 0 || N <= 0 || N > kMaxN) return cudaErrorInvalidValue;
+  if (B <= 0 || B > 65535 || N <= 0 || N > kMaxN)
+    return cudaErrorInvalidValue;
   Sig4 sig4;
   for (int q = 0; q < kNumKp; ++q) sig4.v[q] = sig4_host[q];
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -247,7 +303,11 @@ extern "C" cudaError_t posebyte_nms_keep(const float* poses,
       poses, boxes, valid, mask, N, iou_thr, oks_thr, sig4);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  const size_t gsmem = (size_t)N * n_words(N) * sizeof(uint32_t);
-  nms_greedy_kernel<<<B, 32, gsmem, st>>>(valid, mask, keep, N);
-  return cudaGetLastError();
+  const int wpl = (n_words(N) + 31) / 32;
+  if (wpl <= 1) return launch_greedy<1>(valid, mask, keep, B, N, st);
+  if (wpl <= 2) return launch_greedy<2>(valid, mask, keep, B, N, st);
+  if (wpl <= 4) return launch_greedy<4>(valid, mask, keep, B, N, st);
+  if (wpl <= 8) return launch_greedy<8>(valid, mask, keep, B, N, st);
+  if (wpl <= 16) return launch_greedy<16>(valid, mask, keep, B, N, st);
+  return launch_greedy<kMaxWordsPerLane>(valid, mask, keep, B, N, st);
 }

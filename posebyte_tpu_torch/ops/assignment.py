@@ -89,10 +89,16 @@ def auction_assign(cost: torch.Tensor, row_active: torch.Tensor | None = None,
 
 def auction_assign_cuda(cost: torch.Tensor,
                         row_active: torch.Tensor | None = None,
-                        num_iters: int | None = None):
+                        num_iters: int | None = None,
+                        rounds: torch.Tensor | None = None):
     """Kernel 2 on CUDA tensors: cost [B, R, C] float32, row_active [B, R]
-    bool (the batch axis may be left out) -> (row_assign [B, R] int32,
-    col_assign [B, C] int32). Raises on a bad input or a launch error."""
+    bool or None (every row active; the kernel gets a null pointer), the
+    batch axis may be left out -> (row_assign [B, R] int32, col_assign
+    [B, C] int32), views of one allocation. rounds: optional [B] int32
+    tensor on the cost's device that receives each matrix's rounds with a
+    bid (the count auction_assign_rounds returns); no pipeline path asks
+    for it. Launches on the cost device's current stream. Raises on a bad
+    input or a launch error."""
     unbatched = cost.dim() == 2
     if unbatched:
         cost = cost[None]
@@ -101,15 +107,20 @@ def auction_assign_cuda(cost: torch.Tensor,
         raise ValueError("auction_assign_cuda: cost must be a [B, R, C] or "
                          "[R, C] CUDA tensor")
     B, R, Cc = cost.shape
-    if row_active is None:
-        row_active = torch.ones((B, R), dtype=torch.bool, device=cost.device)
-    if cost.dtype != torch.float32 or row_active.dtype != torch.bool:
+    if cost.dtype != torch.float32 or (row_active is not None and
+                                       row_active.dtype != torch.bool):
         raise TypeError("auction_assign_cuda: cost float32, row_active bool")
-    if row_active.shape != (B, R) or row_active.device != cost.device:
+    if row_active is not None and (row_active.shape != (B, R) or
+                                   row_active.device != cost.device):
         raise ValueError("auction_assign_cuda: row_active must be [B, R] on "
                          "the cost's device")
-    if not (cost.is_contiguous() and row_active.is_contiguous()):
+    if not (cost.is_contiguous() and (row_active is None or
+                                      row_active.is_contiguous())):
         raise ValueError("auction_assign_cuda: inputs must be contiguous")
+    if rounds is not None and (rounds.shape != (B,) or rounds.dtype !=
+                               torch.int32 or rounds.device != cost.device):
+        raise ValueError("auction_assign_cuda: rounds must be [B] int32 on "
+                         "the cost's device")
     lib = cuda_lib.load()
     if min(B, R, Cc) <= 0 or lib.posebyte_auction_smem_bytes(R, Cc) > \
             _MAX_SMEM:
@@ -118,15 +129,16 @@ def auction_assign_cuda(cost: torch.Tensor,
     if num_iters is None:
         num_iters = auction_iterations(R)
     eps0 = float(np.float32(1.0 / (R + 1)))
-    row = torch.empty((B, R), dtype=torch.int32, device=cost.device)
-    col = torch.empty((B, Cc), dtype=torch.int32, device=cost.device)
-    with torch.cuda.device(cost.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = lib.posebyte_auction(
-            cost.data_ptr(), row_active.data_ptr(), row.data_ptr(),
-            col.data_ptr(), B, R, Cc, int(num_iters), eps0, stream)
+    out = torch.empty(B * (R + Cc), dtype=torch.int32, device=cost.device)
+    status = lib.posebyte_auction(
+        cost.data_ptr(), None if row_active is None else
+        row_active.data_ptr(), out.data_ptr(), out.data_ptr() + 4 * B * R,
+        B, R, Cc, int(num_iters), eps0,
+        None if rounds is None else rounds.data_ptr(),
+        torch.cuda.current_stream(cost.device).cuda_stream)
     cuda_lib.check(status, "auction")
     auction_assign_cuda.launches += 1
+    row, col = out[:B * R].view(B, R), out[B * R:].view(B, Cc)
     return (row[0], col[0]) if unbatched else (row, col)
 
 

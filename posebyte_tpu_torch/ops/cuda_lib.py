@@ -39,10 +39,9 @@ _SIGNATURES = {
                                    _c_void_p, _c_void_p, _c_int, _c_int,
                                    _c_float, _c_float, _c_void_p,
                                    _c_void_p]),
-    "posebyte_nms_keep_max_n": (_c_int, []),
     "posebyte_auction": (_c_int, [_c_void_p, _c_void_p, _c_void_p,
                                   _c_void_p, _c_int, _c_int, _c_int, _c_int,
-                                  _c_float, _c_void_p]),
+                                  _c_float, _c_void_p, _c_void_p]),
     "posebyte_auction_smem_bytes": (ctypes.c_size_t, [_c_int, _c_int]),
     "posebyte_tracker_chunk": (_c_int, [_c_void_p, _c_void_p, _c_void_p,
                                         _c_void_p]),
@@ -158,18 +157,31 @@ def ptxas_usage() -> dict:
     return usage
 
 
+def bind(path: str):
+    """The library at `path`, loaded, with the C entries it has given their
+    signatures (a variant built from one source has only its own)."""
+    lib = ctypes.CDLL(path)
+    for name, (restype, argtypes) in _SIGNATURES.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.restype = restype
+            fn.argtypes = argtypes
+    return lib
+
+
 def load():
     """The loaded kernel library (built first if needed)."""
     global _lib
     if _lib is None:
-        path, _ = build()
-        lib = ctypes.CDLL(path)
-        for name, (restype, argtypes) in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.restype = restype
-            fn.argtypes = argtypes
-        _lib = lib
+        _lib = bind(build()[0])
     return _lib
+
+
+def use(lib) -> None:
+    """Make `lib` (from bind) the library every wrapper launches: how
+    utils.kernel_variants times a source variant through the wrappers."""
+    global _lib
+    _lib = lib
 
 
 def check(status: int, what: str) -> None:

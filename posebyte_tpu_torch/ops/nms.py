@@ -23,6 +23,12 @@ from .geometry import boxes_iou_matrix
 
 _SIG4 = np.ascontiguousarray(
     np.float32(4.0) * np.asarray(C.COCO_SIGMAS, np.float32) ** 2)
+# Kernel 1's one limit on N: its greedy pass holds the suppressed set in
+# registers, at most 32 words a lane (csrc/nms_keep.cu kMaxN), 32 times the
+# reference's cap of 1024 candidates; at it a 128-frame chunk's scratch
+# mask takes 16 GiB. The port's PosePipeline refuses a configuration above
+# it when it is constructed.
+MAX_N = 32 * 32 * 32
 
 
 def nms_overlap_matrix(det: Detections, iou_threshold: float,
@@ -90,9 +96,10 @@ def nms_keep_cuda(poses: torch.Tensor, boxes: torch.Tensor,
                   oks_threshold: float) -> torch.Tensor:
     """Kernel 1 on CUDA tensors: poses [B, N, 17, 3] f32, boxes [B, N, 4]
     f32, valid [B, N] bool (the batch axis may be left out) -> keep
-    [B, N] bool. One call launches the kernel's two parts (the dominance
-    bitmask [B, N, ceil(N / 32)], scratch allocated here, then the greedy
-    pass) and counts one launch. Raises on a bad input or a launch error."""
+    [B, N] bool, for any N up to MAX_N (the kernel's own limit). One call
+    launches the kernel's two parts (the dominance bitmask
+    [B, N, ceil(N / 32)], scratch allocated here, then the greedy pass) and
+    counts one launch. Raises on a bad input or a launch error."""
     unbatched = poses.dim() == 3
     if unbatched:
         poses, boxes, valid = poses[None], boxes[None], valid[None]
@@ -104,14 +111,14 @@ def nms_keep_cuda(poses: torch.Tensor, boxes: torch.Tensor,
             or valid.dtype != torch.bool:
         raise TypeError("nms_keep_cuda: poses/boxes float32, valid bool")
     B, N = valid.shape
-    lib = cuda_lib.load()
     if poses.shape != (B, N, C.NUM_KEYPOINTS, 3) or boxes.shape != (B, N, 4) \
-            or not 0 < N <= lib.posebyte_nms_keep_max_n():
+            or not 0 < N <= MAX_N:
         raise ValueError(f"nms_keep_cuda: bad shapes {tuple(poses.shape)}, "
                          f"{tuple(boxes.shape)}, {tuple(valid.shape)}")
     if not (poses.is_contiguous() and boxes.is_contiguous()
             and valid.is_contiguous()):
         raise ValueError("nms_keep_cuda: inputs must be contiguous")
+    lib = cuda_lib.load()
     keep = torch.empty((B, N), dtype=torch.bool, device=poses.device)
     mask = torch.empty((B, N, (N + 31) // 32), dtype=torch.int32,
                        device=poses.device)

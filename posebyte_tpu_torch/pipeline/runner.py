@@ -34,9 +34,9 @@ from ..core.device import resolve_device, set_numeric_settings
 from ..core.structs import Detections, TrackerState
 from ..models.layers import prepare_params
 from ..models.weights import fold_stem_preprocess
-from ..models.yolo_pose import MODEL_CONFIGS, forward_heads
+from ..models.yolo_pose import MODEL_CONFIGS, forward_heads, make_anchors
 from ..ops.decode import decode_topk
-from ..ops.nms import pose_nms
+from ..ops.nms import MAX_N as NMS_MAX_N, pose_nms
 from ..ops.preprocess import letterbox_flat_nhwc, letterbox_params
 from ..ops.reid import make_embed_fn
 from ..ops.tracker_chunk import tracker_chunk
@@ -81,6 +81,11 @@ class PosePipeline:
                                       "decode_fusion='post'")
         self.config = config
         self.device = resolve_device(device)
+        n_cand = min(det_cfg.max_candidates,
+                     len(make_anchors(det_cfg.input_size)[0]))
+        if self.device.type == "cuda" and n_cand > NMS_MAX_N:
+            raise ValueError(f"{n_cand} NMS candidates per frame: Kernel 1 "
+                             f"takes at most {NMS_MAX_N}")
         set_numeric_settings()
         self.dtype = _DTYPES[config.precision] if dtype is None else dtype
         self.family = MODEL_CONFIGS[config.model_name].family
@@ -95,6 +100,8 @@ class PosePipeline:
                                         raw_input=det_cfg.raw_preproc)
         self.state = TrackerState.init(trk_cfg.max_tracks,
                                        trk_cfg.max_detections, self.device)
+        # As the JAX runner keeps it: every entry point counts its frames,
+        # only process_frame adds its host time to dispatch_ms.
         self.timing = {"dispatch_ms": 0.0, "frames": 0}
 
     def _detect(self, params, frames_flat: torch.Tensor, h: int, w: int,
@@ -193,11 +200,9 @@ class PosePipeline:
         """Run a staged chunk [K, H*W*3]; returns the stacked output
         tensors on the device (asynchronous on the card)."""
         k = frames_flat.shape[0]
-        t0 = time.perf_counter()
         with torch.inference_mode():
             self.state, outs = self.chunk_body(k, h, w)(
                 self.params, self.state, frames_flat)
-        self.timing["dispatch_ms"] += (time.perf_counter() - t0) * 1e3
         self.timing["frames"] += k
         return outs
 
@@ -331,3 +336,8 @@ class PosePipeline:
         trk_cfg = self.config.tracker
         self.state = TrackerState.init(trk_cfg.max_tracks,
                                        trk_cfg.max_detections, self.device)
+
+    @property
+    def mean_frame_ms(self) -> float:
+        f = max(self.timing["frames"], 1)
+        return self.timing["dispatch_ms"] / f

@@ -146,6 +146,45 @@ def tracker_chunk_case(seed: int, frames: int, capacity: int,
     return tuple(np.stack(a) for a in out), advance
 
 
+def auction_case(rng: np.random.Generator, R: int = 128, C: int = 64):
+    """A tracker tier's cost matrix [R, C] float32 under stress, and its
+    active rows [R] bool: quantised costs (exact ties), ~60% locked pairs
+    (1e9), a fully locked row and column, ~10% inactive rows."""
+    cost = np.round(rng.uniform(0, 1, (R, C)) * 8) / 8
+    cost[rng.uniform(size=(R, C)) < 0.6] = 1e9
+    cost[3, :] = 1e9
+    cost[:, 5] = 1e9
+    active = rng.uniform(size=R) > 0.1
+    return cost.astype(np.float32), active
+
+
+def nms_case(rng: np.random.Generator, n: int = 256, n_valid: int = 240,
+             chain: int = 30):
+    """Score-sorted NMS candidates as decode gives them, (poses [n, 17, 3],
+    boxes [n, 4] float32, valid [n] bool): clusters of person poses with
+    jitter (dense overlaps), a chain of shifted copies in which each
+    suppresses the next (deeper than the TPU kernel's 24 sweeps), and an
+    invalid tail."""
+    n_cl = n // 12
+    centers = rng.uniform(60, 580, (n_cl, 2))
+    scales = rng.uniform(40, 160, n_cl)
+    cl = rng.integers(0, n_cl, n)
+    poses = np.zeros((n, 17, 3), np.float32)
+    poses[..., :2] = (centers[cl][:, None] + POSE_OFFSETS[None]
+                      * scales[cl][:, None, None]
+                      + rng.normal(0, 4, (n, 17, 2)))
+    poses[..., 2] = rng.uniform(0, 1, (n, 17))
+    for i in range(chain):
+        poses[i, :, :2] = 320 + POSE_OFFSETS * 100 + np.float32(i * 9.0) \
+            * np.array([1, 0], np.float32)
+        poses[i, :, 2] = 0.9
+    boxes = np.stack([poses[..., 0].min(1), poses[..., 1].min(1),
+                      poses[..., 0].max(1), poses[..., 1].max(1)], -1)
+    valid = np.zeros(n, bool)
+    valid[:n_valid] = True
+    return poses, boxes.astype(np.float32), valid
+
+
 def reid_embeddings_case(seed: int, valid: np.ndarray,
                          occlusion: float = 0.3) -> np.ndarray:
     """Appearance embeddings [..., D, 51] float32 for detections with the

@@ -177,3 +177,29 @@ def test_stream_matches_process_frame():
         want = b.process_frame(fr)
         for k in ("ids", "emit", "poses", "num_active"):
             assert torch.equal(out[k], want[k]), k
+
+
+def test_timing_matches_jax_across_chunks_and_frames():
+    """`timing` and `mean_frame_ms` kept as the JAX package keeps them
+    through the same calls: two chunks, then one frame. Chunks count their
+    frames but no dispatch time; process_frame adds both."""
+    det = dict(input_size=256, num_anchors=1344)
+    jpipe = JPosePipeline(JPipelineConfig(detector=JDetectorConfig(**det),
+                                          precision="fp32"),
+                          params=j_load_params(ASSET)[0])
+    tpipe = PosePipeline(PipelineConfig(detector=DetectorConfig(**det),
+                                        precision="fp32"),
+                         params=load_params(ASSET)[0], device="cpu")
+    frames = _frames(5, seed=5)
+    for pipe in (jpipe, tpipe):
+        pipe.process_chunk(frames[:2])
+        pipe.process_chunk_device(pipe.stage_chunk(frames[2:4]), 720, 1280)
+    assert tpipe.timing == jpipe.timing == {"dispatch_ms": 0.0, "frames": 4}
+    assert tpipe.mean_frame_ms == jpipe.mean_frame_ms == 0.0
+    for pipe in (jpipe, tpipe):
+        pipe.process_frame(frames[4], block=True)
+    assert tpipe.timing["frames"] == jpipe.timing["frames"] == 5
+    assert tpipe.timing["dispatch_ms"] > 0.0 and \
+        jpipe.timing["dispatch_ms"] > 0.0
+    for pipe in (jpipe, tpipe):
+        assert pipe.mean_frame_ms == pipe.timing["dispatch_ms"] / 5

@@ -109,18 +109,42 @@ def test_nms_kernel_batched_counts_and_refuses_bad_input(card):
         N.nms_keep_cuda(p[:, :, :16].contiguous(), b, v, 0.55, 0.55)
     with pytest.raises(ValueError):
         N.nms_keep_cuda(p.transpose(0, 1), b, v, 0.55, 0.55)
+    n = N.MAX_N + 1                       # past the kernel's own limit
     with pytest.raises(ValueError):
-        N.nms_keep_cuda(torch.zeros((1, 600, 17, 3), device=card),
-                        torch.zeros((1, 600, 4), device=card),
-                        torch.ones((1, 600), dtype=torch.bool, device=card),
+        N.nms_keep_cuda(torch.zeros((1, n, 17, 3), device=card),
+                        torch.zeros((1, n, 4), device=card),
+                        torch.ones((1, n), dtype=torch.bool, device=card),
                         0.55, 0.55)
+    with pytest.raises(ValueError):
+        N.nms_keep_cuda(p.cpu(), b.cpu(), v.cpu(), 0.55, 0.55)
     assert N.nms_keep_cuda.launches == before + 1
+
+
+# N = 1024: the greedy pass reads its mask from shared memory; N = 2048:
+# from device memory (it does not fit), 2 register words a lane; N = 5000:
+# 8 words a lane, 3 of them past the last. B = 128 at N = 1024: 528 tiles
+# a set in the dominance grid.
+@pytest.mark.parametrize("n,B", [(1024, 1), (1024, 4), (2048, 1), (2048, 4),
+                                 (1024, 128), (5000, 2)])
+def test_nms_kernel_large_n_matches_plain(card, n, B):
+    sets = [candidates(10 + i % 4, n, n - 20 * (i % 4), 40 * (i % 2 == 0))
+            for i in range(B)]
+    p, b, v = (torch.stack([torch.from_numpy(s[i]) for s in sets]).to(card)
+               for i in range(3))
+    got = N.nms_keep_cuda(p, b, v, 0.55, 0.55)
+    want = [N.nms_keep_plain(p[i], b[i], v[i], 0.55, 0.55)
+            for i in range(min(B, 4))]   # set i repeats set i % 4
+    torch.cuda.synchronize()
+    for i in range(B):
+        assert torch.equal(got[i], want[i % 4]), i
 
 
 @pytest.mark.parametrize("seed,R,C,locked,ties", [
     (0, 16, 12, 0.0, False), (1, 24, 16, 0.3, True),
     (2, 128, 64, 0.7, False), (3, 128, 64, 0.5, True), (4, 7, 30, 0.2, True),
-    (5, 64, 64, 0.9, True), (6, 1030, 20, 0.5, False), (7, 1, 1, 0.0, False)])
+    (5, 64, 64, 0.9, True), (6, 1030, 20, 0.5, False), (7, 1, 1, 0.0, False),
+    # the most rows the 1024-thread v1 fitted at C = 64 and at C = 20
+    (8, 886, 64, 0.6, True), (9, 2730, 20, 0.5, False)])
 def test_auction_kernel_matches_plain(card, seed, R, C, locked, ties):
     cost, active = cost_matrix(seed, R, C, locked, ties)
     c, a = torch.from_numpy(cost).to(card), torch.from_numpy(active).to(card)
@@ -148,7 +172,91 @@ def test_auction_kernel_batched_counts_and_refuses_bad_input(card):
         A.auction_assign_cuda(c[:, :, ::2], a)
     with pytest.raises(ValueError):
         A.auction_assign_cuda(torch.zeros((1, 512, 512), device=card))
+    with pytest.raises(ValueError):
+        A.auction_assign_cuda(c.cpu(), a.cpu())
+    with pytest.raises(TypeError):
+        A.auction_assign_cuda(c, a.to(torch.uint8))
     assert A.auction_assign_cuda.launches == before + 1
+
+
+def auction_edge_case(name):
+    """(cost [B, R, C], active [B, R]) of an edge case of Kernel 2's bidder
+    set, lane groups and tie rules."""
+    rng = np.random.default_rng(len(name))
+    if name == "all_locked":
+        mats = [(np.full((128, 64), 1e9, np.float32), np.ones(128, bool))]
+    elif name == "all_inactive":
+        mats = [(rng.uniform(0, 1, (128, 64)).astype(np.float32),
+                 np.zeros(128, bool))]
+    elif name == "one_locked":
+        mats = [(np.full((1, 1), 1e9, np.float32), np.ones(1, bool))]
+    elif name == "ragged":
+        mats = [cost_matrix(11, 128, 65, 0.5, True)]
+    elif name == "ties":
+        mats = [(np.zeros((128, 64), np.float32), np.ones(128, bool))]
+    elif name == "budget":
+        mats = [cost_matrix(12, 128, 64, 0.0, False)]
+    else:
+        mats = [cost_matrix(13 + i, 40, 24, 0.4, True) for i in range(3)]
+    return (np.stack([m[0] for m in mats]), np.stack([m[1] for m in mats]))
+
+
+@pytest.mark.parametrize("name", ["all_locked", "all_inactive",
+                                  "one_locked", "ragged", "ties", "budget",
+                                  "batch3"])
+def test_auction_kernel_edge_cases_match_plain(card, name):
+    """Kernel 2 on its edge cases: assignments and rounds equal to the
+    plain version's, with the active mask and with none (every row)."""
+    cost, active = auction_edge_case(name)
+    c, a = torch.from_numpy(cost).to(card), torch.from_numpy(active).to(card)
+    rounds = torch.full((len(c),), -1, dtype=torch.int32, device=card)
+    kr, kc = A.auction_assign_cuda(c, a, rounds=rounds)
+    nr, nc = A.auction_assign_cuda(c)
+    torch.cuda.synchronize()
+    for i in range(len(c)):
+        pr, pc, pn = A.auction_assign_rounds(c[i], a[i])
+        assert torch.equal(kr[i], pr) and torch.equal(kc[i], pc)
+        assert int(rounds[i]) == pn
+        pr, pc = A.auction_assign(c[i])
+        assert torch.equal(nr[i], pr) and torch.equal(nc[i], pc)
+
+
+def test_auction_kernel_rounds_leave_outputs_unchanged(card):
+    """rounds_out set: the assignments of a launch without it, and each
+    matrix's rounds with a bid equal to the plain version's count (one
+    matrix runs out of the budget)."""
+    cases = [cost_matrix(s, 128, 64, 0.6, True) for s in range(3)]
+    cases.append(cost_matrix(9, 128, 64, 0.0, False))
+    c = torch.stack([torch.from_numpy(x[0]) for x in cases]).to(card)
+    a = torch.stack([torch.from_numpy(x[1]) for x in cases]).to(card)
+    rounds = torch.full((4,), -1, dtype=torch.int32, device=card)
+    kr, kc = A.auction_assign_cuda(c, a)
+    rr, rc = A.auction_assign_cuda(c, a, rounds=rounds)
+    torch.cuda.synchronize()
+    assert torch.equal(kr, rr) and torch.equal(kc, rc)
+    want = [A.auction_assign_rounds(c[i], a[i])[2] for i in range(4)]
+    assert rounds.tolist() == want
+    assert want[3] == A.auction_iterations(128)
+
+
+def test_pipeline_refuses_more_candidates_than_kernel1_takes(card):
+    """A configuration whose NMS sets exceed Kernel 1's limit (N.MAX_N) is
+    refused when the pipeline is built on the card, not mid-run; the CPU
+    takes it, and the card takes N = 1024."""
+    from posebyte_tpu_torch.core import DetectorConfig, PipelineConfig
+    from posebyte_tpu_torch.models import load_params
+    from posebyte_tpu_torch.pipeline import PosePipeline
+
+    params = load_params(os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "assets",
+        "yolov8n-pose-synthetic256.safetensors"))[0]
+    big = PipelineConfig(detector=DetectorConfig(
+        input_size=2560, max_candidates=N.MAX_N + 1))   # 134400 anchors
+    with pytest.raises(ValueError):
+        PosePipeline(big, params, device=card)
+    PosePipeline(big, params, device="cpu")
+    PosePipeline(PipelineConfig(detector=DetectorConfig(
+        max_candidates=1024)), params, device=card)
 
 
 def test_pipeline_card_matches_cpu(card):

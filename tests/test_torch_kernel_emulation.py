@@ -13,6 +13,7 @@ the kalman136 filter's mean and covariance, which must be equal (their
 arithmetic holds no expf). Needs g++ with C++20; the card itself is tested
 in tests/test_torch_cuda.py.
 """
+import ctypes
 import dataclasses
 import os
 import re
@@ -90,12 +91,18 @@ elif sys.argv[2] == "conv":
     np.savez(sys.argv[4], status=0, **outs)
 elif sys.argv[2] == "auction":
     B, R, C = d["cost"].shape
+    # "active" absent: a null pointer (every row active); "rounds" given:
+    # the rounds_out array, returned
     row = np.zeros((B, R), np.int32)
     col = np.zeros((B, C), np.int32)
+    act, rounds = d.get("active"), d.get("rounds")
     st = fn("posebyte_auction")(
-        d["cost"].ctypes.data, d["active"].ctypes.data, row.ctypes.data,
-        col.ctypes.data, B, R, C, int(d["iters"]), float(d["eps0"]), None)
-    np.savez(sys.argv[4], status=st, row=row, col=col)
+        d["cost"].ctypes.data, None if act is None else act.ctypes.data,
+        row.ctypes.data, col.ctypes.data, B, R, C, int(d["iters"]),
+        float(d["eps0"]), None if rounds is None else rounds.ctypes.data,
+        None)
+    extra = {} if rounds is None else {"rounds": rounds}
+    np.savez(sys.argv[4], status=st, row=row, col=col, **extra)
 else:
     # inputs in0..in16 in the pointer table's order; in4 (the detections'
     # embeddings) is absent without Re-ID and passed as a null pointer;
@@ -205,6 +212,7 @@ def candidates(seed, n, n_valid, chain=0):
     ([(5, 512, 500, 0)], (0.65, 0.45)),
     ([(6, 1, 1, 0)], (0.55, 0.55)),
     ([(7, 512, 500, 40), (8, 512, 512, 30)], (0.55, 0.55)),  # N = 512, B > 1
+    ([(9, 1024, 600, 40)], (0.55, 0.55)),          # 128 KB of mask in shared
 ])
 def test_nms_kernel_source_matches_plain(emulated, cases, thr):
     sets = [candidates(*c) for c in cases]
@@ -215,6 +223,23 @@ def test_nms_kernel_source_matches_plain(emulated, cases, thr):
     for b, (p, bx, v) in enumerate(sets):
         want = N.nms_keep_plain(torch.from_numpy(p), torch.from_numpy(bx),
                                 torch.from_numpy(v), *thr).numpy()
+        np.testing.assert_array_equal(got[b], want)
+
+
+def test_nms_kernel_device_memory_route_matches_plain(emulated, tmp_path):
+    """Kernel 1 built with a 4 KB shared-memory budget, so that its greedy
+    pass reads the mask from device memory (the route the card takes above
+    N = 1350) already at N = 256, against the plain version."""
+    lib = _mutant(emulated, tmp_path, "constexpr size_t kMaxSmem = 232448;",
+                  "constexpr size_t kMaxSmem = 4096;", source="nms_keep.cu")
+    sets = [candidates(1, 256, 256, 40), candidates(2, 256, 200, 30)]
+    poses, boxes, valid = (np.stack([s[i] for s in sets]) for i in range(3))
+    got = _launch(lib, "nms", poses=poses, boxes=boxes,
+                  valid=valid.astype(np.uint8), iou=0.55, oks=0.55,
+                  sig4=N._SIG4)["keep"].astype(bool)
+    for b, (p, bx, v) in enumerate(sets):
+        want = N.nms_keep_plain(torch.from_numpy(p), torch.from_numpy(bx),
+                                torch.from_numpy(v), 0.55, 0.55).numpy()
         np.testing.assert_array_equal(got[b], want)
 
 
@@ -250,6 +275,9 @@ def cost_matrix(seed, R, C, locked, ties):
     [(4, 7, 30, 0.2, True)],
     [(5, 1030, 20, 0.5, False)],                   # more rows than threads
     [(6, 1, 1, 0.0, False)],
+    # the most rows v1's shared memory took at C = 64 and at C = 20
+    [(14, 886, 64, 0.6, True)],
+    [(15, 2730, 20, 0.5, False)],
 ])
 def test_auction_kernel_source_matches_plain(emulated, cases):
     mats = [cost_matrix(*c) for c in cases]
@@ -265,21 +293,212 @@ def test_auction_kernel_source_matches_plain(emulated, cases):
         np.testing.assert_array_equal(got["col"][b], col.numpy())
 
 
-def test_auction_kernel_mutation_is_caught(emulated, tmp_path):
-    """auction_rounds with its lanes' merge breaking ties toward the
-    higher column (Kernels 2 and 3 share it) must disagree with the plain
-    version on costs with exact ties."""
-    mutant = _mutant(emulated, tmp_path, "(ob == best && oc < best_c)",
-                     "(ob == best && oc > best_c)", source="auction.cuh",
-                     unit="auction.cu")
-    mats = [cost_matrix(s, 128, 64, 0.6, True) for s in (1, 3)]
-    got = _launch(mutant, "auction", cost=np.stack([m[0] for m in mats]),
-                  active=np.stack([m[1] for m in mats]).astype(np.uint8),
-                  iters=A.auction_iterations(128),
-                  eps0=np.float32(1.0 / 129))
+def v1_smem_bytes(R, C):
+    """Shared memory of the 1024-thread v1 of Kernel 2: the matrix and an
+    active byte a row (4 C + 5 bytes), a 64-bit key, a price and an owner a
+    column (16 bytes)."""
+    return R * (4 * C + 5) + 16 * C
+
+
+def test_auction_smem_fits_every_shape_v1_took(emulated):
+    """For every R, Kernel 2 fits the most columns v1's layout fitted in a
+    block's shared memory (posebyte_auction_smem_bytes, the layout the
+    launch uses); the largest-R cases of the emulation and card tests sit
+    at v1's limit."""
+    lib = ctypes.CDLL(emulated[0])
+    smem = lib.posebyte_auction_smem_bytes
+    smem.restype, smem.argtypes = \
+        cuda_lib._SIGNATURES["posebyte_auction_smem_bytes"]
+    R = 1
+    while (C := (A._MAX_SMEM - 5 * R) // (4 * R + 16)) >= 1:
+        assert v1_smem_bytes(R, C) <= A._MAX_SMEM
+        assert smem(R, C) <= A._MAX_SMEM, (R, C)
+        R += 1
+    assert R - 1 == 25825             # v1 took no more rows, at C = 1
+    for R, C in ((886, 64), (2730, 20)):
+        assert v1_smem_bytes(R, C) <= A._MAX_SMEM < v1_smem_bytes(R + 1, C)
+        assert smem(R, C) <= A._MAX_SMEM
+    assert smem(512, 512) > A._MAX_SMEM  # the wrappers' refusal case
+
+
+def _auction_inputs(mats, active=True):
+    R = mats[0][0].shape[0]
+    d = dict(cost=np.stack([m[0] for m in mats]),
+             iters=A.auction_iterations(R), eps0=np.float32(1.0 / (R + 1)))
+    if active:
+        d["active"] = np.stack([m[1] for m in mats]).astype(np.uint8)
+    return d
+
+
+@pytest.mark.parametrize("cases", [
+    [(1, 128, 64, 0.6, True), (3, 128, 64, 0.9, True)],
+    [(0, 16, 12, 0.0, False)],                     # the budget runs out
+])
+def test_auction_kernel_rounds_leave_outputs_unchanged(emulated, cases):
+    """rounds_out set: row and col as without it, and each matrix's count
+    of rounds with a bid equal to the plain version's."""
+    mats = [cost_matrix(*c) for c in cases]
+    inputs = _auction_inputs(mats)
+    plain = _launch(emulated, "auction", **inputs)
+    got = _launch(emulated, "auction", **inputs,
+                  rounds=np.full(len(mats), -1, np.int32))
+    np.testing.assert_array_equal(got["row"], plain["row"])
+    np.testing.assert_array_equal(got["col"], plain["col"])
+    want = [A.auction_assign_rounds(torch.from_numpy(c),
+                                    torch.from_numpy(a))[2] for c, a in mats]
+    np.testing.assert_array_equal(got["rounds"], want)
+    assert max(want) > 1
+
+
+def test_auction_kernel_null_active_is_every_row(emulated):
+    """A null active pointer (the wrapper's row_active=None) runs every
+    row, as an all-ones mask does."""
+    mats = [cost_matrix(s, 128, 64, 0.6, True) for s in (1, 2)]
+    got = _launch(emulated, "auction", **_auction_inputs(mats, False))
+    for b, (cost, _) in enumerate(mats):
+        row, col = A.auction_assign(torch.from_numpy(cost))
+        np.testing.assert_array_equal(got["row"][b], row.numpy())
+        np.testing.assert_array_equal(got["col"][b], col.numpy())
+
+
+def edge_matrices(name):
+    """[(cost, active)] of an edge case of Kernel 2 v2's bidder set, lane
+    groups and tie rules."""
+    rng = np.random.default_rng(len(name))
+    if name == "all_locked":
+        return [(np.full((128, 64), 1e9, np.float32), np.ones(128, bool))]
+    if name == "all_inactive":
+        return [(rng.uniform(0, 1, (128, 64)).astype(np.float32),
+                 np.zeros(128, bool))]
+    if name == "one_locked":             # R = 1, C = 1, the pair locked
+        return [(np.full((1, 1), 1e9, np.float32), np.ones(1, bool))]
+    if name == "ragged":                 # C = 65: 8 lanes, ragged columns
+        return [cost_matrix(11, 128, 65, 0.5, True)]
+    if name == "ties":                   # every value equal
+        return [(np.zeros((128, 64), np.float32), np.ones(128, bool))]
+    if name == "budget":                 # 128 rows for 64 columns
+        return [cost_matrix(12, 128, 64, 0.0, False)]
+    return [cost_matrix(13 + i, 40, 24, 0.4, True)    # B = 3
+            for i in range(3)]
+
+
+# edge cases that share a launch (the two with 50 rounds each launch
+# alone, to stay well inside _launch's time limit on a loaded host)
+EDGE_LAUNCHES = {"all_locked": "none bid", "all_inactive": "none bid",
+                 "ties": "ties", "budget": "budget", "one_locked": "1x1",
+                 "ragged": "128x65", "batch3": "40x24"}
+
+
+@pytest.fixture(scope="module")
+def edge_results(emulated):
+    """{edge case: (its matrices, the kernel's row, col and rounds)}."""
+    out = {}
+    for shape in sorted(set(EDGE_LAUNCHES.values())):
+        names = [n for n, s in EDGE_LAUNCHES.items() if s == shape]
+        mats = [m for n in names for m in edge_matrices(n)]
+        got = _launch(emulated, "auction", **_auction_inputs(mats),
+                      rounds=np.full(len(mats), -1, np.int32))
+        b = 0
+        for n in names:
+            k = len(edge_matrices(n))
+            out[n] = (mats[b:b + k], {key: got[key][b:b + k]
+                                      for key in ("row", "col", "rounds")})
+            b += k
+    return out
+
+
+@pytest.mark.parametrize("name", list(EDGE_LAUNCHES))
+def test_auction_kernel_edge_cases_match_plain(edge_results, name):
+    """Kernel 2 on its edge cases: assignments and rounds equal to the
+    plain version's."""
+    mats, got = edge_results[name]
+    for b, (cost, active) in enumerate(mats):
+        row, col, rounds = A.auction_assign_rounds(torch.from_numpy(cost),
+                                                   torch.from_numpy(active))
+        np.testing.assert_array_equal(got["row"][b], row.numpy())
+        np.testing.assert_array_equal(got["col"][b], col.numpy())
+        assert got["rounds"][b] == rounds
+    if name == "budget":
+        assert got["rounds"][0] == A.auction_iterations(128)
+    if name in ("all_locked", "all_inactive", "one_locked"):
+        assert (got["rounds"] == 0).all() and (got["row"] == -1).all()
+
+
+@pytest.mark.parametrize("old,new", [
+    # ties in the lanes' merge sent toward the higher column
+    ("(ob == best && oc < best_c)", "(ob == best && oc > best_c)"),
+    # the key's row word not inverted: equal top bids to the higher row
+    ("unsigned row_key(unsigned r) { return 0xffffffffu - r; }",
+     "unsigned row_key(unsigned r) { return r; }"),
+    # an evicted row left out of the bidders, though it may bid again
+    ("if (old >= 0) atomicOr(&bidders[old >> 5], 1u << (old & 31));", ""),
+])
+def test_auction_kernel_v2_mutation_is_caught(emulated, tmp_path, old,
+                                              new):
+    """Kernel 2 with a broken tie rule or bidder set must disagree with
+    the plain version on tracker-shaped costs with exact ties."""
+    mutant = _mutant(emulated, tmp_path, old, new, source="auction.cu")
+    mats = [cost_matrix(s, 128, 64, 0.6, True) for s in (1, 3)] + \
+        edge_matrices("ties")
+    got = _launch(mutant, "auction", **_auction_inputs(mats))
     rows = [A.auction_assign(torch.from_numpy(c), torch.from_numpy(a))[0]
             .numpy() for c, a in mats]
     assert not np.array_equal(got["row"], np.stack(rows))
+
+
+@pytest.mark.parametrize("ranked", ["true", "false"])
+def test_auction_kernel_both_routes_match_plain(emulated, tmp_path, ranked):
+    """Kernel 2 with its bidders always taken by rank ("true") or always
+    row by row ("false"), in place of the choice it makes each round,
+    equals the plain version: the route changes no bid."""
+    lib = _mutant(emulated, tmp_path, "if (2 * n < R) {",
+                  f"if ({ranked}) {{", source="auction.cu")
+    for mats in ([cost_matrix(s, 128, 64, 0.6, True) for s in (1, 3)] +
+                 edge_matrices("ties"), [cost_matrix(5, 1030, 20, 0.5,
+                                                     False)]):
+        got = _launch(lib, "auction", **_auction_inputs(mats),
+                      rounds=np.full(len(mats), -1, np.int32))
+        for b, (cost, active) in enumerate(mats):
+            row, col, rounds = A.auction_assign_rounds(
+                torch.from_numpy(cost), torch.from_numpy(active))
+            np.testing.assert_array_equal(got["row"][b], row.numpy())
+            np.testing.assert_array_equal(got["col"][b], col.numpy())
+            assert got["rounds"][b] == rounds
+
+
+def tie_case():
+    """tracker_case(1, 12, 32, 16, 12) with every frame's first detection
+    repeated exactly (pose, box and score) in the slot after it, so that
+    the tiers' costs tie between the two columns."""
+    state, dets, advance = tracker_case(1, 12, 32, 16, 12)
+    arrays = [a.clone() for a in (dets.poses, dets.boxes, dets.scores,
+                                  dets.valid)]
+    for k in range(arrays[0].shape[0]):
+        n = int(dets.valid[k].sum())
+        if 0 < n < dets.valid.shape[1]:
+            for new, old in zip(arrays, (dets.poses, dets.boxes,
+                                         dets.scores, dets.valid)):
+                new[k, 1:n + 1] = old[k, :n]
+    return state, Detections(*arrays), advance
+
+
+def test_auction_kernel_mutation_is_caught(emulated, tmp_path):
+    """auction_rounds (auction.cuh, Kernel 3's auction since Kernel 2 has
+    its own) with its lanes' merge breaking ties toward the higher column
+    must make Kernel 3 disagree with the plain version on frames whose
+    costs tie; the header as it is agrees."""
+    mutant = _mutant(emulated, tmp_path, "(ob == best && oc < best_c)",
+                     "(ob == best && oc > best_c)", source="auction.cuh",
+                     unit="tracker_chunk.cu")
+    state, dets, advance = tie_case()
+    cfg = TrackerConfig(max_tracks=32, max_detections=16)
+    want_state, want_outs = TC.tracker_chunk_plain(state, dets, cfg, advance)
+    inputs = tracker_inputs(state, dets, cfg, advance)
+    assert_tracker_equal(_launch(emulated, "tracker", **inputs), want_state,
+                         want_outs)
+    with pytest.raises(AssertionError):   # a mismatch, or a crash
+        got = _launch(mutant, "tracker", **inputs)
+        assert_tracker_equal(got, want_state, want_outs)
 
 
 def tracker_inputs(state, dets, cfg, advance, embs=None):

@@ -7,6 +7,8 @@ deep), and the port's plain version. Keep masks and compacted detections
 must be equal. Kernel 1 itself (CUDA) is held against the plain version in
 tests/test_torch_cuda.py.
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -19,6 +21,7 @@ from posebyte_tpu.ops.nms import pose_nms as j_pose_nms
 from posebyte_tpu.ops.pallas_kernels import nms_keep_pallas
 
 from posebyte_tpu_torch.core.structs import Detections
+from posebyte_tpu_torch.ops import cuda_lib
 from posebyte_tpu_torch.ops import nms as N
 
 torch.set_num_threads(2)
@@ -121,6 +124,36 @@ def test_pose_nms_compaction_matches_jax():
         np.testing.assert_array_equal(getattr(td, f).numpy(),
                                       np.asarray(getattr(jd, f)))
     assert td.valid.sum() == 16                     # more kept than slots
+
+
+def test_pose_nms_at_1024_candidates_matches_jax():
+    """max_candidates = 1024 (the reference's cap; Kernel 1 had refused
+    N > 512): the port's pose_nms equals JAX's on a set with a suppression
+    chain of 40 that crosses its 32-rank words."""
+    poses, boxes, scores, valid = make_candidates(9, 1024, 1000, 40)
+    jd = j_pose_nms(JDetections(poses=jnp.asarray(poses),
+                                boxes=jnp.asarray(boxes),
+                                scores=jnp.asarray(scores),
+                                valid=jnp.asarray(valid)),
+                    0.55, 0.55, 64, presorted=True)
+    td = N.pose_nms(Detections(*(torch.from_numpy(a) for a in
+                                 (poses, boxes, scores, valid))),
+                    0.55, 0.55, 64, presorted=True)
+    for f in ("poses", "boxes", "scores", "valid"):
+        np.testing.assert_array_equal(getattr(td, f).numpy(),
+                                      np.asarray(getattr(jd, f)), err_msg=f)
+    assert chain_sweeps(poses, boxes, valid, 0.55, 0.55) > 32
+    assert 16 < int(td.valid.sum()) <= 64
+
+
+def test_cuda_limit_is_the_kernels():
+    """ops.nms.MAX_N is the limit csrc/nms_keep.cu states: 32 ranks a
+    word, 32 lanes, kMaxWordsPerLane register words a lane."""
+    with open(os.path.join(cuda_lib.CSRC, "nms_keep.cu")) as f:
+        src = f.read()
+    assert "constexpr int kMaxWordsPerLane = 32;" in src
+    assert "constexpr int kMaxN = 32 * 32 * kMaxWordsPerLane;" in src
+    assert N.MAX_N == 32 * 32 * 32
 
 
 def test_pose_nms_few_survivors_zero_tail():
