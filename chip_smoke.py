@@ -108,6 +108,33 @@ Phases, each printing one JSON line with its elapsed seconds:
                the float inputs the CPU computed for every int8 conv, with
                the int8 activations that differ when each device computes
                its own float inputs counted per conv and frame
+  serving_path StreamServer on the card (yolov8n-pose, 640, bf16, raw u8
+               ingest), 8 streams of 1920x1080, each its own synthetic
+               scene: all open, 16 frames each, stream 3 starved for 4
+               steps, stream 5 closed after 6 frames and reopened (a reset)
+               with 6 more, stepped until drained; every step exactly
+               nms_keep 1 (B = 8), tracker_chunk 1 (K = 1, S = 8), auction
+               0; each stream's frame counter equal to the frames it was
+               served, the reopened stream's ids from 1, every stream's
+               last tracks within 10 px of its people; frames/s, steps/s,
+               device busy ms per step (torch.profiler), Kernels 1 and 3
+               timed on a full step's own inputs
+  chunked_serving_path  ChunkedStreamServer (chunk 8), the same streams
+               and script (stream 3 starved until nothing else is
+               queued): nms_keep 1 (B = 64) and tracker_chunk 1 (K = 8, S
+               = 8) per step; the same checks and times
+  serving_cpu_vs_card  both servers in fp32 on the CPU and on the card,
+               4 streams x 4 frames, one reset and one starved step: ids
+               and emit equal, keypoints within 1e-2 px; on the card the
+               chunked server's outputs equal the per-frame server's (ids
+               equal, poses within 1e-4); the chunked server again with
+               the learned Re-ID head, ids equal
+  frontend     PoseServingFrontend over loopback around the card's chunked
+               server: two PoseClients (60 s socket timeouts), a stream
+               each; the fifth frame into a queue of 4 answers BUSY; the
+               tracks that come back equal the server's own outputs
+               un-letterboxed (within 1e-2 px, the JSON's rounding); closing
+               it stops its threads
 Each path's launch counts are set to 0 just before it runs and read just
 after. Then a line {"kernels": [...]} with each kernel's launches (summed
 over the paths' runs), error, times and bound (the tracker chunk's also
@@ -116,11 +143,14 @@ Kernel 3's stage clock split (ops.tracker_chunk.read_stage_clock: us per
 frame of each stage, auction rounds per frame, share of frames at the
 round budget) for the pipeline chunk, the stress chunk, Re-ID at D = 64
 and 128 and kalman136; Kernel 1's also per frame at B = 1 and at
-B = 128; Kernel 4's per chunk of the int8 path, its float mode as "ms"
+B = 128, and at the servers' B = 8 and 64, Kernel 3's at the servers' K =
+1 and 8 for S = 8; Kernel 4's per chunk of the int8 path, its float mode as "ms"
 and its int8 mode beside it, with its instantiations and yardsticks), and
 last {"ok": true, "device": {...}}. Any failure raises and exits non-zero
 before that line; a hang is cut by faulthandler.
 """
+import collections
+import contextlib
 import faulthandler
 import functools
 import json
@@ -268,11 +298,12 @@ def chunk_diff(got, want):
 
 
 def tracker_chunk_work(dets, adv, outs, T=128, emb=None, kalman=False):
-    """(bytes, float32 operations) of one chunk on these inputs: each
-    input read once (detections, mask, initial state with its embeddings,
-    with Re-ID the detections' embeddings [K, D, 51], with kalman136 the
-    filter's mean and covariance [T, 136]), each output written once (frame
-    outputs, final state); per frame, ~30 operations for the
+    """(bytes, float32 operations) of one chunk of one or more streams on
+    these inputs: each input read once (detections, mask, each stream's
+    initial state with its embeddings, with Re-ID the detections'
+    embeddings [K, D, 51], with kalman136 the filter's mean and covariance
+    [T, 136]), each output written once (frame outputs, final state); per
+    frame, ~30 operations for the
     gate of each active-track x valid-detection pair plus ~8 per keypoint
     of the OKS (17) and torso OKS (4) on each such pair, and ~20 per track
     pair of the dedup. With Re-ID also ~15 per keypoint (the two energies,
@@ -284,8 +315,10 @@ def tracker_chunk_work(dets, adv, outs, T=128, emb=None, kalman=False):
     keypoint of each matched track's update. The active tracks entering a
     frame are those of the last advanced frame's output."""
     K, D = dets.scores.shape[-2:]
-    state_bytes = (T * (51 + 34 + 1 + 51) * 4 + T * 6 * 4 + T + 8
-                   + D * 4 + (2 * T * 136 * 4 if kalman else 0))
+    streams = dets.scores.numel() // (K * D)
+    state_bytes = streams * (T * (51 + 34 + 1 + 51) * 4 + T * 6 * 4 + T
+                             + 8 + D * 4 + (2 * T * 136 * 4 if kalman
+                                            else 0))
     nbytes = (dets.poses.numel() * 4 + dets.scores.numel() * 4
               + dets.valid.numel() + adv.numel() + 2 * state_bytes
               + sum(v.numel() * v.element_size() for v in outs.values())
@@ -703,7 +736,7 @@ def phase_chunk_path(t0, params, rows):
     with torch.inference_mode():
         flat = pipe.stage_chunk(frames)
         imgs = letterbox_flat_nhwc(flat, WIDTH, HEIGHT, dc.input_size,
-                                   selection=True)
+                                   selection=True, raw=True)
         det = decode_topk(*forward_heads(pipe.params, imgs.to(pipe.dtype),
                                          pipe.family),
                           dc.conf_threshold, dc.max_candidates, dc.input_size)
@@ -1268,7 +1301,8 @@ def int8_conv_calls(pipe):
     try:
         with torch.inference_mode():
             flat = pipe.prestage_frame(frames[0])
-            img = letterbox_flat_nhwc(flat[None], WIDTH, HEIGHT, LETTERBOX)
+            img = letterbox_flat_nhwc(flat[None], WIDTH, HEIGHT, LETTERBOX,
+                                      raw=True)
             forward_heads(pipe.params, img.to(pipe.dtype), pipe.family)
     finally:
         CI.conv_w8a8_cuda = kernel
@@ -1682,7 +1716,7 @@ def int8_quant_witness(qparams, frames):
             with torch.inference_mode():
                 imgs[dev] = torch.cat([letterbox_flat_nhwc(
                     pipe.prestage_frame(f)[None], WIDTH, HEIGHT,
-                    LETTERBOX).float() for f in frames])
+                    LETTERBOX, raw=True).float() for f in frames])
                 forward_heads(pipe.params, imgs[dev], pipe.family)
         finally:
             L.conv_w8a8 = conv
@@ -1763,6 +1797,461 @@ def phase_int8_cpu_vs_card(t0, qparams):
             or d.max() > INT8_KP_MAX_PX or tie_mism or same_mism \
             or n_ties == 0:
         raise SystemExit("int8 on the card and the CPU disagree")
+
+
+SERVE_STREAMS = 8      # the 8 concurrent 1080p streams of sharding.py:85
+SERVE_W, SERVE_H = 1920, 1080
+SERVE_FRAMES = 16
+SERVE_CHUNK = 8        # ChunkedStreamServer's default chunk
+STARVED, STARVE_STEPS = 3, 4
+REOPENED, BEFORE_REOPEN = 5, 6
+CMP_STREAMS, CMP_STREAM_FRAMES = 4, 4
+
+
+@functools.lru_cache(maxsize=1)
+def serving_streams():
+    """SERVE_STREAMS streams of 1920x1080 frames, each its own synthetic
+    scene (seed SEED + 100 + s, people 1.5x the 1280x720 scenes' size, so
+    that they are as large in the letterbox): per stream the frames and
+    the people's poses in each."""
+    from posebyte_tpu_torch.utils.synthetic import SyntheticScene, \
+        render_frame
+    out = []
+    for s in range(SERVE_STREAMS):
+        scene = SyntheticScene(N_PERSONS, SERVE_W, SERVE_H, seed=SEED + 100 + s,
+                               scale_range=(135.0, 210.0), speed=6.0)
+        gts = [scene.step() for _ in range(SERVE_FRAMES)]
+        out.append(([render_frame(g, SERVE_W, SERVE_H) for g in gts], gts))
+    return out
+
+
+@contextlib.contextmanager
+def recorded(module, name):
+    """While active, the (args, kwargs) of every call of module.name are
+    recorded; the calls themselves are unchanged."""
+    orig, calls = getattr(module, name), []
+
+    def record(*a, **kw):
+        calls.append((a, kw))
+        return orig(*a, **kw)
+    setattr(module, name, record)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, orig)
+
+
+def serve_script(srv, streams, kernels):
+    """The lifecycle script on a server of SERVE_STREAMS slots: open every
+    stream and queue its SERVE_FRAMES frames, but stream STARVED's only
+    after STARVE_STEPS steps (or once nothing else is queued) and stream
+    REOPENED's first BEFORE_REOPEN only; once those are served, close
+    REOPENED, reopen its slot (a reset) and queue BEFORE_REOPEN more of
+    its frames; step until drained. Returns the outputs per stream (the
+    reopened stream's after its reset, and before it), each step's launch
+    counts, frames and wall ms (the step ends with its output copy), the
+    steps stream STARVED waited and the frames each stream was served.
+    kernels: _kernel_counts(), taken before any wrapper is installed."""
+    sids = [srv.open_stream() for _ in range(SERVE_STREAMS)]
+    if sids != list(range(SERVE_STREAMS)):
+        raise SystemExit(f"stream ids {sids}")
+    for sid, (frames, _) in enumerate(streams):
+        if sid != STARVED:
+            n = BEFORE_REOPEN if sid == REOPENED else SERVE_FRAMES
+            for f in frames[:n]:
+                srv.submit(sid, f)
+    outs = [[] for _ in sids]
+    before_reset, counts, served, ms = None, [], [], []
+    starved_steps, reopened = None, False
+    while True:
+        if starved_steps is None and (len(counts) == STARVE_STEPS
+                                      or not any(srv._in)):
+            starved_steps = len(counts)
+            for f in streams[STARVED][0]:
+                srv.submit(STARVED, f)
+        start = {k: fn.launches for k, fn in kernels.items()}
+        t = time.perf_counter()
+        n = srv.step()
+        ms.append((time.perf_counter() - t) * 1e3)
+        if n == 0:
+            ms.pop()
+            if starved_steps is None or not reopened:
+                raise SystemExit("the lifecycle script stalled")
+            break
+        counts.append({k: fn.launches - start[k] for k, fn in kernels.items()})
+        served.append(n)
+        for sid in sids:
+            outs[sid] += srv.poll(sid)
+        if not reopened and len(outs[REOPENED]) == BEFORE_REOPEN:
+            srv.close_stream(REOPENED)
+            if srv.open_stream() != REOPENED:
+                raise SystemExit("the reopened stream took another slot")
+            before_reset, outs[REOPENED], reopened = outs[REOPENED], [], True
+            for f in streams[REOPENED][0][BEFORE_REOPEN:2 * BEFORE_REOPEN]:
+                srv.submit(REOPENED, f)
+    for sid in sids:
+        srv.close_stream(sid)
+    return {"outs": outs, "before_reset": before_reset, "counts": counts,
+            "served": served, "ms": ms, "starved_steps": starved_steps,
+            "frames": [int(v) for v in srv.states.frame.cpu()]}
+
+
+def check_serving(run, name):
+    """The lifecycle's checks: every step one Kernel 1 and one Kernel 3
+    launch and no Kernel 2 launch; each stream's frame counter equal to the
+    frames it was served (the starved one's too, the reopened one's since
+    its reset); the reopened stream's ids restarting at 1; the last frame's
+    tracks of every stream within 10 px of its people. Returns each
+    stream's worst keypoint error (px)."""
+    import numpy as np
+    from posebyte_tpu_torch.pipeline.runner import frame_tracks
+    bad = [c for c in run["counts"]
+           if c != {"nms_keep": 1, "auction": 0, "tracker_chunk": 1}]
+    if bad:
+        raise SystemExit(f"{name}: launch counts per step {bad}, expected "
+                         "nms_keep 1, tracker_chunk 1, auction 0")
+    want = [SERVE_FRAMES] * SERVE_STREAMS
+    want[REOPENED] = BEFORE_REOPEN
+    got = [len(o) for o in run["outs"]]
+    if run["frames"] != want or got != want \
+            or len(run["before_reset"]) != BEFORE_REOPEN:
+        raise SystemExit(f"{name}: frame counters {run['frames']}, outputs "
+                         f"{got}, expected {want}")
+    first = next(o for o in run["outs"][REOPENED] if o["emit"].any())
+    ids = sorted(int(i) for i in first["ids"][first["emit"]])
+    if ids[0] != 1 or len(set(ids)) != len(ids):
+        raise SystemExit(f"{name}: the reopened stream's ids {ids} do not "
+                         "restart at 1")
+    errs = []
+    streams = serving_streams()
+    for sid, outs in enumerate(run["outs"]):
+        last = outs[-1]
+        res = frame_tracks(last["ids"], last["scores"], last["poses"],
+                           last["boxes"], last["emit"], SERVE_W, SERVE_H,
+                           LETTERBOX)
+        gt = streams[sid][1][(2 * BEFORE_REOPEN if sid == REOPENED
+                              else SERVE_FRAMES) - 1]
+        for r in res:
+            if not (np.isfinite(r.keypoints).all()
+                    and np.isfinite(r.bbox).all()):
+                raise SystemExit(f"{name}: non-finite track output")
+        errs.append(max(track_errors(res, gt)))
+    if max(errs) > 10.0:
+        raise SystemExit(f"{name}: tracks miss the synthetic people: {errs}")
+    return errs
+
+
+def busy_ms_per_step(srv):
+    """Device busy ms per step (kernels and copies, torch.profiler) over up
+    to 3 steps of every stream with queued frames, after one unprofiled
+    step (None where the profiler records no device activity), the
+    profiled wall ms per step and the 8 kernels or copies with the most
+    device ms per step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from posebyte_tpu_torch.utils.profiling import STAGES
+    streams = serving_streams()
+    k = getattr(srv, "chunk", 1)
+    steps = min(3, SERVE_FRAMES // k - 1)
+    for sid in range(SERVE_STREAMS):
+        srv.open_stream()
+        for f in streams[sid][0][:k * (steps + 1)]:
+            srv.submit(sid, f)
+    srv.step()                                   # the reset step, unprofiled
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(steps):
+            srv.step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3 / steps
+    for sid in range(SERVE_STREAMS):
+        srv.poll(sid)
+        srv.close_stream(sid)
+    per_kernel = collections.defaultdict(float)
+    for e in prof.events():
+        # a stage label's device-side copy is a span with gaps, not busy
+        # time (utils/profiling.py reads the stages the same way)
+        if e.device_type == torch.autograd.DeviceType.CUDA \
+                and e.name not in STAGES:
+            per_kernel[e.name[:60]] += e.device_time_total / 1e3 / steps
+    busy = sum(per_kernel.values())
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
+    return (busy if busy > 0 else None), wall, top
+
+
+def serving_kernel_times(rows, nms_call, k3_call, tag):
+    """Kernel 1 and Kernel 3 on a serving step's own inputs (the last
+    recorded call of each): held against their plain versions on the same
+    inputs (Kernel 1 bit for bit, Kernel 3 as tracker_chunk_row holds it),
+    the results added to the rows' mismatches and max_abs_err; ms,
+    device_ms, plain_ms and bound_ms beside the row's other shapes, under
+    `tag` and serving_k{K}_s{S}."""
+    import torch
+    from posebyte_tpu_torch.ops.nms import nms_keep_cuda, nms_keep_plain
+    from posebyte_tpu_torch.ops.tracker_chunk import tracker_chunk_cuda, \
+        tracker_chunk_plain
+    (p, b, v, iou, oks), _ = nms_call
+
+    def nms_plain():
+        return torch.stack([nms_keep_plain(*a, iou, oks)
+                            for a in zip(p, b, v)])
+    mism = int((nms_keep_cuda(p, b, v, iou, oks) != nms_plain()).sum())
+    nbytes = ops = 0
+    for i in range(v.shape[0]):
+        nb, o = nms_work(p[i], b[i], v[i], iou)
+        nbytes, ops = nbytes + nb, ops + o
+    r1 = rows["nms_keep"]
+    r1["mismatches"] += mism
+    r1["max_abs_err"] = float(r1["mismatches"] > 0)
+    r1[f"ms_{tag}"] = cuda_ms(lambda: nms_keep_cuda(p, b, v, iou, oks), 50)
+    r1[f"device_ms_{tag}"] = device_ms(
+        lambda: nms_keep_cuda(p, b, v, iou, oks), 50)
+    r1[f"plain_ms_{tag}"] = cuda_ms(nms_plain, 2)
+    r1[f"bound_ms_{tag}"], r1[f"bound_by_{tag}"] = bound(nbytes, ops)
+    if mism:
+        raise SystemExit(f"nms_keep at the serving shape {tag}: {mism} "
+                         "mismatches against its plain version")
+    args, kw = k3_call
+    state, dets, cfg, adv, emb = args
+    got = tracker_chunk_cuda(*args, **kw)
+    m3, e3 = chunk_diff(got, tracker_chunk_plain(*args, **kw))
+    nbytes, ops = tracker_chunk_work(dets, adv, got[1], T=cfg.max_tracks)
+    r3 = rows["tracker_chunk"]
+    r3["mismatches"] += m3
+    r3["max_abs_err"] = max(r3["max_abs_err"], e3)
+    k3 = f"serving_k{adv.shape[1]}_s{adv.shape[0]}"
+    r3[f"ms_{k3}"] = cuda_ms(lambda: tracker_chunk_cuda(*args, **kw), 20)
+    r3[f"device_ms_{k3}"] = device_ms(
+        lambda: tracker_chunk_cuda(*args, **kw), 20)
+    r3[f"plain_ms_{k3}"] = cuda_ms(lambda: tracker_chunk_plain(*args, **kw),
+                                   1)
+    r3[f"bound_ms_{k3}"], r3[f"bound_by_{k3}"] = bound(nbytes, ops)
+    if m3 or e3 > 1e-5 + 1e-6 * 1280:
+        raise SystemExit(f"tracker_chunk at the serving shape {k3}: {m3} "
+                         f"integer mismatches, float error {e3}")
+    return {"nms_keep": {"mismatches": mism,
+                         **{k: r1[k] for k in r1 if k.endswith(tag)}},
+            "tracker_chunk": {"mismatches": m3, "max_abs_err": e3,
+                              **{k: r3[k] for k in r3 if k.endswith(k3)}}}
+
+
+def phase_serving_path(t0, params, rows, kind):
+    """StreamServer (kind "frame") or ChunkedStreamServer (kind "chunk",
+    SERVE_CHUNK) on the card: yolov8n-pose 640, bf16, raw u8 ingest,
+    SERVE_STREAMS streams of 1920x1080 through the lifecycle script; then
+    the device busy ms per step over a steady window, and Kernels 1 and 3
+    timed on the steps' own inputs. Returns the server (the frontend phase
+    serves through the chunked one)."""
+    import numpy as np
+    import torch
+    from posebyte_tpu_torch.core import PipelineConfig
+    from posebyte_tpu_torch.ops import nms as N
+    from posebyte_tpu_torch.pipeline import serving as SV
+    streams = serving_streams()
+    if kind == "frame":
+        srv = SV.StreamServer(SERVE_STREAMS, (SERVE_H, SERVE_W),
+                              PipelineConfig(), params)
+    else:
+        srv = SV.ChunkedStreamServer(SERVE_STREAMS, (SERVE_H, SERVE_W),
+                                     SERVE_CHUNK, PipelineConfig(), params)
+    # warm-up: one step of one stream, its slot reset when reopened
+    srv.open_stream()
+    srv.submit(0, streams[0][0][0])
+    srv.step()
+    srv.poll(0)
+    srv.close_stream(0)
+    kernels = _kernel_counts()
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    with recorded(N, "nms_keep") as nms_calls, \
+            recorded(SV, "tracker_chunk") as k3_calls:
+        run = serve_script(srv, streams, kernels)
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    errs = check_serving(run, f"{kind} serving")
+    for k, n in launches.items():
+        rows[k]["launches"] += n
+    busy, busy_wall, top = busy_ms_per_step(srv)
+    tag = f"b{SERVE_STREAMS * (SERVE_CHUNK if kind == 'chunk' else 1)}"
+    full = int(np.argmax(run["served"]))   # a step with every stream's frames
+    times = serving_kernel_times(rows, nms_calls[full], k3_calls[full], tag)
+    timed = run["ms"][1:]                 # after the first (reset) step
+    frames = sum(run["served"][1:])
+    emit("serving_path" if kind == "frame" else "chunked_serving_path", t0,
+         streams=SERVE_STREAMS, frame=[SERVE_W, SERVE_H],
+         chunk=getattr(srv, "chunk", 1), steps=len(run["served"]),
+         served_per_step=run["served"], launches=launches,
+         launches_per_step=run["counts"][0], starved_steps=run["starved_steps"],
+         frames_per_stream=run["frames"],
+         reopened_ids=sorted({int(i) for o in run["outs"][REOPENED]
+                              for i in o["ids"][o["emit"]]}),
+         frames_per_s=frames / (sum(timed) / 1e3),
+         steps_per_s=len(timed) / (sum(timed) / 1e3),
+         ms_per_step=timed, ms_first_step=run["ms"][0],
+         device_busy_ms_per_step=busy, profiled_wall_ms_per_step=busy_wall,
+         top_device_ms_per_step=top,
+         kp_err_px_per_stream=errs, peak_mem_mb=peak,
+         kernel_times=times, tracks_last_frame=[
+             int(o[-1]["emit"].sum()) for o in run["outs"]],
+         mean_tracks=float(np.mean([int(o["emit"].sum())
+                                    for s in run["outs"] for o in s])))
+    return srv
+
+
+def serving_cmp_run(srv):
+    """The comparison script on a server of CMP_STREAMS slots: stream 1
+    starved for the first step, stream 2 closed after its first frame and
+    reopened (a reset) with 3 more; step until drained. Returns the
+    outputs per stream."""
+    streams = serving_streams()
+    sids = [srv.open_stream() for _ in range(CMP_STREAMS)]
+    frames = [streams[s][0][:CMP_STREAM_FRAMES] for s in sids]
+    for sid in (0, 3):
+        for f in frames[sid]:
+            srv.submit(sid, f)
+    srv.submit(2, frames[2][0])
+    srv.step()
+    srv.close_stream(2)
+    srv.open_stream()
+    for f in frames[2][1:]:
+        srv.submit(2, f)
+    for f in frames[1]:
+        srv.submit(1, f)
+    while srv.step():
+        pass
+    outs = [srv.poll(s) for s in sids]
+    for s in sids:
+        srv.close_stream(s)
+    return outs
+
+
+def serving_diff(a, b, scale=1.0):
+    """(ids and emit equal, max keypoint difference / scale) between two
+    runs' per-stream outputs."""
+    import numpy as np
+    equal, err = True, 0.0
+    for sa, sb in zip(a, b):
+        equal &= len(sa) == len(sb)
+        for x, y in zip(sa, sb):
+            equal &= bool(np.array_equal(x["ids"], y["ids"])
+                          and np.array_equal(x["emit"], y["emit"]))
+            m = x["emit"] & y["emit"]
+            if m.any():
+                err = max(err, float(np.abs(x["poses"][m][..., :2]
+                                            - y["poses"][m][..., :2]).max()
+                                     / scale))
+    return equal, err
+
+
+def phase_serving_cpu_vs_card(t0, params, sources):
+    """Both servers in fp32 on the CPU and on the card, CMP_STREAMS streams
+    x CMP_STREAM_FRAMES frames of 1920x1080 with one reset and one starved
+    step: ids and emit equal, keypoints within 1e-2 px (frame pixels); on
+    the card the chunked server's outputs equal the per-frame server's
+    (ids equal, poses within 1e-4 in letterbox pixels); the chunked server
+    again with the learned Re-ID head, ids equal."""
+    from posebyte_tpu_torch.core import PipelineConfig, TrackerConfig
+    from posebyte_tpu_torch.ops.preprocess import letterbox_params
+    from posebyte_tpu_torch.pipeline import serving as SV
+    scale = letterbox_params(SERVE_W, SERVE_H, LETTERBOX)[0]
+    cfg = PipelineConfig(precision="fp32")
+    reid_cfg = PipelineConfig(precision="fp32", tracker=TrackerConfig(
+        reid_weight=REID_WEIGHT))
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        runs["frame", dev] = serving_cmp_run(SV.StreamServer(
+            CMP_STREAMS, (SERVE_H, SERVE_W), cfg, params, device=dev))
+        runs["chunk", dev] = serving_cmp_run(SV.ChunkedStreamServer(
+            CMP_STREAMS, (SERVE_H, SERVE_W), CMP_STREAM_FRAMES, cfg, params,
+            device=dev))
+        runs["head", dev] = serving_cmp_run(SV.ChunkedStreamServer(
+            CMP_STREAMS, (SERVE_H, SERVE_W), CMP_STREAM_FRAMES, reid_cfg,
+            params, device=dev, reid_params=sources["head"][1]))
+    res = {}
+    for kind in ("frame", "chunk", "head"):
+        eq, err = serving_diff(runs[kind, "cpu"], runs[kind, "cuda"], scale)
+        res[kind] = {"ids_equal": eq, "max_kp_diff_px": err}
+    eq, err = serving_diff(runs["chunk", "cuda"], runs["frame", "cuda"])
+    res["card_chunk_vs_frame"] = {"ids_equal": eq,
+                                  "max_pose_diff_letterbox_px": err}
+    tracks = sum(int(o["emit"].sum()) for s in runs["frame", "cuda"]
+                 for o in s)
+    emit("serving_cpu_vs_card", t0, streams=CMP_STREAMS,
+         frames_per_stream=[len(s) for s in runs["frame", "cuda"]],
+         tracks=tracks, **res)
+    if not tracks or any(not res[k]["ids_equal"] or res[k]["max_kp_diff_px"]
+                         > 1e-2 for k in ("frame", "chunk", "head")):
+        raise SystemExit("the servers on the card and the CPU disagree")
+    if not eq or err > 1e-4:
+        raise SystemExit("the chunked server on the card disagrees with the "
+                         "per-frame server")
+
+
+def phase_frontend(t0, srv, rows):
+    """PoseServingFrontend over loopback around the card's chunked server:
+    two clients with a stream each; the tracks that come back equal the
+    server's own outputs un-letterboxed (within 1e-2 px, the JSON's
+    2-decimal rounding); a full queue answers BUSY; every client socket has a
+    timeout, and closing the front end stops its threads."""
+    import numpy as np
+    from posebyte_tpu_torch.pipeline import frontend as FE
+    from posebyte_tpu_torch.pipeline.runner import frame_tracks
+    streams = serving_streams()
+    kernels = _kernel_counts()
+    for fn in kernels.values():
+        fn.launches = 0
+    fe = FE.PoseServingFrontend(srv, max_queue=4, auto_step=False)
+    served_outs = []
+    poll = srv.poll
+    srv.poll = lambda sid: (lambda o: (served_outs.extend(o), o)[1])(
+        poll(sid))
+    try:
+        clients = [FE.PoseClient(*fe.address, timeout=60.0)
+                   for _ in range(2)]
+        sids = [c.open_stream() for c in clients]
+        accepted = [clients[0].send_frame(sids[0], f)
+                    for f in streams[0][0][:5]]
+        for f in streams[1][0][:3]:
+            accepted.append(clients[1].send_frame(sids[1], f))
+        steps = [fe.step_once()]
+        again = clients[0].send_frame(sids[0], streams[0][0][5])
+        steps.append(fe.step_once())
+        got = [c.poll(s) for c, s in zip(clients, sids)]
+        stats = clients[0].stats()
+        for c, s in zip(clients, sids):
+            c.close_stream(s)
+            c.close()
+    finally:
+        srv.poll = poll
+        fe.close()
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    for k, n in launches.items():
+        rows[k]["launches"] += n
+    want = [frame_tracks(o["ids"], o["scores"], o["poses"], o["boxes"],
+                         o["emit"], SERVE_W, SERVE_H, LETTERBOX)
+            for o in served_outs]
+    flat = got[0] + got[1]
+    err, ids_equal = 0.0, len(flat) == len(want)
+    for g, w in zip(flat, want):
+        ids_equal &= [t["id"] for t in g] == [t.track_id for t in w]
+        for a, b in zip(g, w):
+            err = max(err, float(np.abs(np.asarray(a["keypoints"])
+                                        - b.keypoints).max()),
+                      float(np.abs(np.asarray(a["bbox"]) - b.bbox).max()))
+    alive = [t.name for t in fe._threads if t.is_alive()]
+    emit("frontend", t0, accepted=accepted, busy_refused=accepted[4] is False,
+         accepted_after_step=again, steps=steps,
+         frames_polled=[len(g) for g in got], launches=launches,
+         tracks=[len(t) for t in flat], ids_equal=ids_equal,
+         max_diff_px=err, stats=stats, threads_alive=alive)
+    if accepted != [True] * 4 + [False] + [True] * 3 or not again \
+            or steps != [7, 1] or [len(g) for g in got] != [5, 3] \
+            or not ids_equal or err > 1e-2 or alive or not any(flat) \
+            or launches != {"nms_keep": 2, "auction": 0, "tracker_chunk": 2}:
+        raise SystemExit("the frontend's round trip failed")
 
 
 def kernel_label(mangled):
@@ -1854,6 +2343,11 @@ def main():
     phase_int8_main_path(t0, qparams, rows)
     phase_int8_chunk_path(t0, qparams, rows)
     phase_int8_cpu_vs_card(t0, qparams)
+    phase_serving_path(t0, params, rows, "frame")
+    chunked = phase_serving_path(t0, params, rows, "chunk")
+    phase_serving_cpu_vs_card(t0, params, sources)
+    phase_frontend(t0, chunked, rows)
+    del chunked
 
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
@@ -1867,7 +2361,16 @@ def main():
             "yardstick_two_pass_ms", "yardstick_cudnn_bf16_ms",
             "yardstick_int_mm_ms", "ms_frame", "bound_ms_frame",
             "frame_candidates", "ms_b128", "bound_ms_b128",
-            "ms_pipeline", "stage_split",
+            "ms_pipeline", "ms_b8", "device_ms_b8", "bound_ms_b8",
+            "bound_by_b8", "plain_ms_b8", "ms_b64", "device_ms_b64",
+            "bound_ms_b64", "bound_by_b64", "plain_ms_b64",
+            "ms_serving_k1_s8", "device_ms_serving_k1_s8",
+            "bound_ms_serving_k1_s8", "bound_by_serving_k1_s8",
+            "plain_ms_serving_k1_s8", "ms_serving_k8_s8",
+            "device_ms_serving_k8_s8", "bound_ms_serving_k8_s8",
+            "bound_by_serving_k8_s8", "plain_ms_serving_k8_s8",
+            "mismatches",
+            "stage_split",
             "stage_split_pipeline", "stage_split_reid",
             "stage_split_kalman")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}

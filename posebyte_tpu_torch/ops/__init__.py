@@ -15,7 +15,8 @@ from .nms import (nms_keep, nms_keep_cuda, nms_keep_plain,
                   nms_overlap_matrix, pose_nms)
 from .oks import (combine_costs, oks_distance_matrix, oks_matrix,
                   torso_oks_matrix)
-from .preprocess import (letterbox_flat_nhwc, letterbox_params,
+from .preprocess import (letterbox_flat, letterbox_flat_nhwc,
+                         letterbox_image, letterbox_params,
                          unletterbox_coords)
 from .reid import (REID_DIM, blend_reid_cost, cosine_cost_matrix,
                    ema_update, make_embed_fn, pose_color_embedding)
@@ -29,7 +30,7 @@ __all__ = [
     "cv_predict", "cv_update", "nms_keep", "nms_keep_cuda",
     "nms_keep_plain", "nms_overlap_matrix", "pose_nms", "combine_costs",
     "oks_distance_matrix", "oks_matrix", "torso_oks_matrix",
-    "letterbox_flat_nhwc",
+    "letterbox_flat", "letterbox_flat_nhwc", "letterbox_image",
     "letterbox_params", "unletterbox_coords", "REID_DIM", "blend_reid_cost",
     "cosine_cost_matrix", "ema_update", "make_embed_fn",
     "pose_color_embedding", "tracker_chunk_cuda", "tracker_chunk_plain",

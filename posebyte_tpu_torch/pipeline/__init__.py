@@ -1,5 +1,19 @@
-"""The per-frame pipeline (the chunked and serving paths wait for later
-slices)."""
-from .runner import PosePipeline
+"""The pose pipeline (per frame and per chunk), the multi-stream servers and
+their TCP front end."""
+from .runner import Detector, PosePipeline
 
-__all__ = ["PosePipeline"]
+
+def __getattr__(name):
+    # The servers and the front end load on first touch, so that importing
+    # the pipeline stays light.
+    if name in ("StreamServer", "ChunkedStreamServer"):
+        from . import serving
+        return getattr(serving, name)
+    if name in ("PoseServingFrontend", "PoseClient"):
+        from . import frontend
+        return getattr(frontend, name)
+    raise AttributeError(name)
+
+
+__all__ = ["PosePipeline", "Detector", "StreamServer", "ChunkedStreamServer",
+           "PoseServingFrontend", "PoseClient"]

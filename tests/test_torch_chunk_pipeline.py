@@ -55,7 +55,7 @@ def test_selection_letterbox_bytes_equal(w, h, target):
     rng = np.random.default_rng(w * h)
     frames = rng.integers(0, 256, (2, h * w * 3), dtype=np.uint8)
     got = P.letterbox_flat_nhwc(torch.from_numpy(frames), w, h, target,
-                                selection=True)
+                                selection=True, raw=True)
     assert got.dtype == torch.uint8 and got.shape == (2, target, target, 3)
     for i in range(2):
         want = np.asarray(j_letterbox(jnp.asarray(frames[i]), w, h, target,
@@ -63,7 +63,7 @@ def test_selection_letterbox_bytes_equal(w, h, target):
         assert want.dtype == np.uint8
         np.testing.assert_array_equal(got[i].numpy(), want)
         matmul = P.letterbox_flat_nhwc(torch.from_numpy(frames[i]), w, h,
-                                       target)
+                                       target, raw=True)
         np.testing.assert_array_equal(got[i].float().numpy(),
                                       matmul.numpy())
 
@@ -73,9 +73,11 @@ def test_selection_needs_an_exact_decimation():
     assert P._selection_strides(333, 517, 256) is None
     frame = torch.from_numpy(np.random.default_rng(0).integers(
         0, 256, (517 * 333 * 3,), dtype=np.uint8))
-    out = P.letterbox_flat_nhwc(frame, 333, 517, 256, selection=True)
+    out = P.letterbox_flat_nhwc(frame, 333, 517, 256, selection=True,
+                                raw=True)
     assert out.dtype == torch.float32
-    assert torch.equal(out, P.letterbox_flat_nhwc(frame, 333, 517, 256))
+    assert torch.equal(out, P.letterbox_flat_nhwc(frame, 333, 517, 256,
+                                                  raw=True))
 
 
 def head_batch(seed, K=4, A=1344):

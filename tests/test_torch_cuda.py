@@ -858,3 +858,125 @@ def test_int8_pipeline_card_matches_cpu(card):
     assert len(on_card) == 59 * 5 and not any(on_card)
     d = np.concatenate([x.ravel() for x in diffs])
     assert d.max() <= 8.0 and np.median(d) <= 0.5
+
+
+SRV_H, SRV_W = 96, 128
+
+
+def serving_run(kind, device, reid, counts=None):
+    """Both servers' lifecycle at the small config (input 64, T = 8, D = 4)
+    with the oracle detector (three people; the pixels feed only Re-ID):
+    4 streams, stream 1 starved for a step, stream 2 closed after 2 frames
+    and reopened (a reset). Returns each stream's outputs; `counts` gets
+    each step's launches of Kernels 1, 2 and 3."""
+    from posebyte_tpu_torch.core import (DetectorConfig, PipelineConfig,
+                                         TrackerConfig)
+    from posebyte_tpu_torch.models.oracle import encode_oracle_head, \
+        make_oracle_heads
+    from posebyte_tpu_torch.ops import tracker_chunk as TC
+    from posebyte_tpu_torch.pipeline import serving as SV
+    from posebyte_tpu_torch.utils.synthetic import SyntheticScene, pose_bbox
+
+    scene = SyntheticScene(3, 64, 64, seed=5, scale_range=(14.0, 18.0),
+                           speed=0.0)
+    gt = scene.step()
+    head = encode_oracle_head(gt, np.stack([pose_bbox(p) for p in gt]),
+                              np.float32([0.9, 0.8, 0.7]), 64)
+    cfg = PipelineConfig(
+        detector=DetectorConfig(input_size=64, num_anchors=84,
+                                max_candidates=16, max_detections=4),
+        tracker=TrackerConfig(max_tracks=8, max_detections=4, min_hits=1,
+                              reid_weight=0.3 if reid else 0.0))
+    kw = {"chunk": 3} if kind == "chunk" else {}
+    cls = SV.ChunkedStreamServer if kind == "chunk" else SV.StreamServer
+    srv = cls(4, (SRV_H, SRV_W), config=cfg, params=head, device=device,
+              dtype=torch.float32, heads_fn=make_oracle_heads(), **kw)
+    frames = np.random.default_rng(3).integers(0, 255, (4, 5, SRV_H, SRV_W,
+                                                        3), np.uint8)
+    sids = [srv.open_stream() for _ in range(4)]
+    kernels = (N.nms_keep_cuda, A.auction_assign_cuda, TC.tracker_chunk_cuda)
+    outs = [[] for _ in sids]
+
+    def step():
+        before = [k.launches for k in kernels]
+        n = srv.step()
+        if counts is not None and n:
+            counts.append([k.launches - b for k, b in zip(kernels, before)])
+        return n
+
+    for sid in sids:
+        if sid != 1:
+            for f in frames[sid, :2]:
+                srv.submit(sid, f)
+    step()
+    srv.close_stream(2)
+    assert srv.open_stream() == 2
+    for sid in sids:
+        for f in frames[sid, 2:]:
+            srv.submit(sid, f)
+    while step():
+        pass
+    for sid in sids:
+        outs[sid] = srv.poll(sid)
+    frames_seen = [int(f) for f in srv.states.frame.cpu()]
+    return outs, frames_seen
+
+
+@pytest.mark.parametrize("kind", ["frame", "chunk"])
+@pytest.mark.parametrize("reid", [False, True])
+def test_servers_card_match_cpu(card, kind, reid):
+    """Both stream servers on the card against the CPU: the same outputs
+    per stream (ids and emit equal, poses within 1e-4 px), each step one
+    Kernel 1 and one Kernel 3 launch and no Kernel 2 launch, frame
+    counters equal to the frames each stream was served."""
+    counts = []
+    cpu, cpu_frames = serving_run(kind, "cpu", reid)
+    gpu, gpu_frames = serving_run(kind, card, reid, counts)
+    assert counts and all(c == [1, 0, 1] for c in counts)
+    assert gpu_frames == cpu_frames
+    for a, b in zip(gpu, cpu):
+        assert len(a) == len(b)
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x["ids"], y["ids"])
+            np.testing.assert_array_equal(x["emit"], y["emit"])
+            np.testing.assert_allclose(x["poses"], y["poses"], atol=1e-4)
+    assert [len(o) for o in gpu] == [5, 3, 3, 5]
+    assert gpu[2][0]["ids"][gpu[2][0]["emit"]].tolist() == [1, 2, 3]
+
+
+def test_tracker_chunk_kernel_one_frame_streams_matches_plain(card):
+    """Kernel 3 as the per-frame server runs it: K = 1 for S = 8 streams
+    with holes in the advance mask, from states some frames in; bit for
+    bit against its plain version (tracker_step per stream)."""
+    from posebyte_tpu_torch.core.config import TrackerConfig
+    from posebyte_tpu_torch.ops import tracker_chunk as TC
+    dets, adv, state = tracker_chunk_inputs(card, 21, 9, 128, 64, 40, 8)
+    cfg = TrackerConfig()
+    state, _ = TC.tracker_chunk_plain(state, TC._pick(
+        dets, (slice(None), slice(0, 8))), cfg, adv[:, :8])
+    last = TC._pick(dets, (slice(None), slice(8, 9)))
+    adv1 = torch.arange(8, device=card)[:, None] % 3 != 1
+    before = TC.tracker_chunk_cuda.launches
+    got = TC.tracker_chunk_cuda(state, last, cfg, adv1)
+    assert TC.tracker_chunk_cuda.launches == before + 1
+    want = TC.tracker_chunk_plain(state, last, cfg, adv1)
+    torch.cuda.synchronize()
+    assert_chunk_identical(got, want)
+    assert got[1]["emit"].any()
+
+
+@pytest.mark.parametrize("B", [8, 64])
+def test_nms_kernel_stream_batches_matches_plain(card, B):
+    """Kernel 1 at the servers' batches: B = S per frame, B = S K per
+    chunk (S = 8, K = 8), N = 256, in one launch."""
+    sets = [candidates(30 + i, 256, 256 - 7 * (i % 9), 40 * (i % 3 == 0))
+            for i in range(B)]
+    p, b, v = (torch.stack([torch.from_numpy(s[i]) for s in sets]).to(card)
+               for i in range(3))
+    before = N.nms_keep_cuda.launches
+    got = N.nms_keep_cuda(p, b, v, 0.55, 0.55)
+    assert N.nms_keep_cuda.launches == before + 1
+    want = torch.stack([N.nms_keep_plain(p[i], b[i], v[i], 0.55, 0.55)
+                        for i in range(B)])
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)

@@ -17,6 +17,9 @@ def test_port_import_is_light(tmp_path):
         "import posebyte_tpu_torch, posebyte_tpu_torch.core,"
         " posebyte_tpu_torch.ops, posebyte_tpu_torch.models,"
         " posebyte_tpu_torch.tracker, posebyte_tpu_torch.pipeline,"
+        " posebyte_tpu_torch.pipeline.serving,"
+        " posebyte_tpu_torch.pipeline.frontend,"
+        " posebyte_tpu_torch.models.oracle,"
         " posebyte_tpu_torch.utils.synthetic;"
         "bad = [m for m in ('jax', 'flax', 'posebyte_tpu', 'safetensors',"
         " 'cv2', 'triton') if m in sys.modules];"

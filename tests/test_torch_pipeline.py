@@ -72,8 +72,12 @@ def test_card_is_the_default_device():
 
 
 def test_pipeline_rejects_unported_options():
+    """decode_fusion='tail' is refused; raw_preproc=False (the normalised
+    letterbox into the unfolded model) runs."""
     params = load_params(ASSET)[0]
-    for cfg in (PipelineConfig(detector=DetectorConfig(raw_preproc=False)),
-                PipelineConfig(detector=DetectorConfig(decode_fusion="tail"))):
-        with pytest.raises(NotImplementedError):
-            PosePipeline(cfg, params=params, device="cpu")
+    with pytest.raises(NotImplementedError):
+        PosePipeline(PipelineConfig(detector=DetectorConfig(
+            decode_fusion="tail")), params=params, device="cpu")
+    pipe = PosePipeline(PipelineConfig(detector=DetectorConfig(
+        raw_preproc=False)), params=params, device="cpu")
+    assert not pipe.config.detector.raw_preproc

@@ -42,7 +42,7 @@ def test_letterbox_bytes_equal(w, h, target, dtype):
                                   out_dtype=getattr(jnp, dtype),
                                   selection=False, raw=True))
     got = P.letterbox_flat_nhwc(torch.from_numpy(frame), w, h, target,
-                                out_dtype=getattr(torch, dtype))
+                                out_dtype=getattr(torch, dtype), raw=True)
     assert got.shape == (target, target, 3)
     got_np = got.float().numpy() if dtype == "bfloat16" else got.numpy()
     np.testing.assert_array_equal(got_np, want.astype(np.float32))
