@@ -108,6 +108,31 @@ Phases, each printing one JSON line with its elapsed seconds:
                the float inputs the CPU computed for every int8 conv, with
                the int8 activations that differ when each device computes
                its own float inputs counted per conv and frame
+  v11_main_path, v11_cpu_vs_card, v11_chunk_path, v11_chunk_cpu_vs_card
+               main_path, cpu_vs_card, chunk_path and chunk_cpu_vs_card
+               for yolo11n-pose (640, assets/yolo11n-pose-synthetic640,
+               the same frames, launches and bars); the chunk phases of
+               both models (and of both at int8) also profile one more
+               chunk (device busy and Kernel 4 ms per frame, operations,
+               idle share, top items) and time the model's forward at
+               B = 128 on the device (model_device_ms_per_frame)
+  v11_int8     yolo11n-pose at int8, in parts each printing its line:
+               v11_int8_calibration (85 convs, 7 depthwise),
+               v11_int8_kernels (every Kernel 4 launch of one forward, 78,
+               against its plain version on its own inputs, each distinct
+               shape at B = 128 checked and timed), v11_int8_chunk_path
+               (78 Kernel 4 launches per chunk), v11_int8_cpu_vs_card;
+               then the v11_int8 line: their verdicts and the depthwise
+               route (models.layers.conv_w8a8_depthwise recorded over one
+               forward of a chunk, bf16 and float32 activations) bit for
+               bit against its float64 plain version
+  pt_import    an Ultralytics-structured .pt of yolo11n-pose written from
+               the checkpoint (module classes that exist only while it is
+               written, float32, identity BatchNorm) and read back by
+               models.load_pretrained: tensors within PT_FOLD_RTOL of
+               load_params', PosePipeline on the card with either set of
+               weights (fp32, 4 frames): ids equal, keypoints within 1e-2
+               px; and at bf16
   serving_path StreamServer on the card (yolov8n-pose, 640, bf16, raw u8
                ingest), 8 streams of 1920x1080, each its own synthetic
                scene: all open, 16 frames each, stream 3 starved for 4
@@ -137,7 +162,9 @@ Phases, each printing one JSON line with its elapsed seconds:
                it stops its threads
 Each path's launch counts are set to 0 just before it runs and read just
 after. Then a line {"kernels": [...]} with each kernel's launches (summed
-over the paths' runs), error, times and bound (the tracker chunk's also
+over the paths' runs, yolo11n-pose's included), error, times and bound
+(yolo11n-pose's under "_v11" keys, Kernel 4's under "v11"; the tracker
+chunk's also
 with Re-ID and with kalman136, and the variants it was held in, with
 Kernel 3's stage clock split (ops.tracker_chunk.read_stage_clock: us per
 frame of each stage, auction rounds per frame, share of frames at the
@@ -170,6 +197,7 @@ N_PERSONS = 6
 SEED = 7
 REID_WEIGHT = 0.3      # the repo's one Re-ID configuration
 LETTERBOX = 640        # the model input, where the Re-ID sources sample
+V8, V11 = "yolov8n-pose", "yolo11n-pose"   # the two families' n models
 HEAD_ASSET = "reid-head-synthetic.safetensors"
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and float32
 # operations/s outside the tensor cores.
@@ -511,6 +539,12 @@ def phase_kernels(t0):
     return rows
 
 
+def suffix(model):
+    """The row keys' suffix of a model's numbers: none for the v8 model
+    the rows were first written for, "_v11" for YOLO11."""
+    return "" if model == V8 else "_v11"
+
+
 def make_frames(n):
     from posebyte_tpu_torch.utils.synthetic import SyntheticScene, \
         render_frame
@@ -523,7 +557,10 @@ def make_frames(n):
     return gts, frames
 
 
-def phase_main_path(t0, params, rows):
+def phase_main_path(t0, params, rows, model=V8, phase="main_path"):
+    """The per-frame path of `model` (bf16) over FRAMES frames; the v8
+    run's Kernel 1 time and Kernel 2 rounds keep their row keys, another
+    model's get its suffix ("_v11")."""
     import numpy as np
     import torch
     from posebyte_tpu_torch.core import PipelineConfig
@@ -535,7 +572,8 @@ def phase_main_path(t0, params, rows):
     from posebyte_tpu_torch.tracker import step as S
 
     gts, frames = make_frames(FRAMES)
-    pipe = PosePipeline(PipelineConfig(), params)     # the card, bf16
+    pipe = PosePipeline(PipelineConfig(model_name=model), params)  # bf16
+    sfx = suffix(model)
     nms_keep_cuda.launches = 0
     auction_assign_cuda.launches = 0
     tracker_chunk_cuda.launches = 0
@@ -573,14 +611,15 @@ def phase_main_path(t0, params, rows):
     nms_ms = cuda_ms(lambda: nms_keep_cuda(p, b, v, iou_thr, oks_thr), 200)
     nms_bound, _ = bound(*nms_work(p.reshape(-1, 17, 3), b.reshape(-1, 4),
                                    v.reshape(-1), iou_thr))
-    rows["nms_keep"].update(ms_frame=nms_ms, bound_ms_frame=nms_bound,
-                            frame_candidates=int(v.sum()))
+    rows["nms_keep"].update({"ms_frame" + sfx: nms_ms,
+                             "bound_ms_frame" + sfx: nms_bound,
+                             "frame_candidates" + sfx: int(v.sum())})
     # accuracy: every person of the last frame has a track within 10 px
     kp = np.stack([r.keypoints[:, :2] for r in res]) if res else \
         np.zeros((0, 17, 2), np.float32)
     errs = [float(np.abs(kp - g[None, :, :2]).mean(axis=(1, 2)).min())
             if len(kp) else float("inf") for g in gts[-1]]
-    emit("main_path", t0, frames=FRAMES, dets_per_frame=dets,
+    emit(phase, t0, model=model, frames=FRAMES, dets_per_frame=dets,
          tracks_per_frame=tracks, launches=launches,
          ms_per_frame_after_warmup=float(np.mean(ms[4:])),
          ms_first_frame=ms[0], last_frame_kp_err_px=errs,
@@ -588,15 +627,16 @@ def phase_main_path(t0, params, rows):
          nms_frame_ms=nms_ms, nms_frame_bound_ms=nms_bound,
          nms_frame_shape=list(v.shape), nms_frame_valid=int(v.sum()),
          auction_rounds_per_tier=tiers)
-    rows["auction"]["rounds_main_path"] = tiers
-    for k, r in rows.items():
-        r["launches"] = launches[k]
+    rows["auction"]["rounds_main_path" + sfx] = tiers
+    for k, n in launches.items():
+        rows[k]["launches"] = rows[k].get("launches", 0) + n
     if launches != {"nms_keep": FRAMES, "auction": 3 * FRAMES,
                     "tracker_chunk": 0}:
-        raise SystemExit(f"main path launch counts {launches}, expected "
+        raise SystemExit(f"{phase} launch counts {launches}, expected "
                          f"{FRAMES}, {3 * FRAMES} and 0")
     if max(errs) > 10.0:
-        raise SystemExit(f"tracks miss the synthetic people: {errs}")
+        raise SystemExit(f"{phase}: tracks miss the synthetic people: "
+                         f"{errs}")
 
 
 def auction_tier_rounds(calls):
@@ -627,13 +667,13 @@ def auction_tier_rounds(calls):
     return tiers
 
 
-def phase_cpu_vs_card(t0, params):
+def phase_cpu_vs_card(t0, params, model=V8, phase="cpu_vs_card"):
     import numpy as np
     from posebyte_tpu_torch.core import PipelineConfig
     from posebyte_tpu_torch.pipeline import PosePipeline
 
     _, frames = make_frames(CMP_FRAMES)
-    cfg = PipelineConfig(precision="fp32")
+    cfg = PipelineConfig(precision="fp32", model_name=model)
     runs = {}
     for dev in ("cpu", "cuda"):
         pipe = PosePipeline(cfg, params, device=dev)
@@ -646,11 +686,11 @@ def phase_cpu_vs_card(t0, params):
             kp_err = max(kp_err, float(np.abs(
                 np.stack([t.keypoints for t in a])
                 - np.stack([t.keypoints for t in b])).max()))
-    emit("cpu_vs_card", t0, frames=CMP_FRAMES, ids_equal=ids_equal,
+    emit(phase, t0, model=model, frames=CMP_FRAMES, ids_equal=ids_equal,
          tracks_per_frame=[len(r) for r in runs["cuda"]],
          max_kp_diff_px=kp_err)
-    if not ids_equal or kp_err > 1e-2:
-        raise SystemExit("the card and the CPU disagree")
+    if not ids_equal or kp_err > 1e-2 or not any(runs["cuda"]):
+        raise SystemExit(f"{phase}: the card and the CPU disagree")
 
 
 @functools.lru_cache(maxsize=4)
@@ -684,7 +724,9 @@ def track_errors(res, gt):
             if len(kp) else float("inf") for g in gt]
 
 
-def phase_chunk_path(t0, params, rows):
+def phase_chunk_path(t0, params, rows, model=V8, phase="chunk_path"):
+    """The chunk path of `model` (bf16) at K = CHUNK; the v8 run's Kernel 1
+    and 3 times keep their row keys, another model's get its suffix."""
     import numpy as np
     import torch
     from posebyte_tpu_torch.core import PipelineConfig
@@ -698,8 +740,9 @@ def phase_chunk_path(t0, params, rows):
     from posebyte_tpu_torch.utils.profiling import clocked_split, \
         recorded_tracker_calls
 
-    cfg = PipelineConfig()                            # the card, bf16
+    cfg = PipelineConfig(model_name=model)            # the card, bf16
     pipe = PosePipeline(cfg, params)
+    sfx = suffix(model)
     torch.cuda.reset_peak_memory_stats()
     kernels = {"nms_keep": nms_keep_cuda, "auction": auction_assign_cuda,
                "tracker_chunk": tracker_chunk_cuda}
@@ -725,6 +768,7 @@ def phase_chunk_path(t0, params, rows):
                     raise SystemExit("non-finite track output")
     launches = {k: fn.launches for k, fn in kernels.items()}
     peak = torch.cuda.max_memory_allocated() / 2**20
+    prof = profiled_chunk(pipe, frames)
 
     # Kernel 3 on the last chunk's own inputs: its time and stage clock
     args, kw = calls[-1]
@@ -750,7 +794,7 @@ def phase_chunk_path(t0, params, rows):
             nbytes, ops = nbytes + b, ops + o
     nms_bound, nms_by = bound(nbytes, ops)
     timed = ms[1:]
-    emit("chunk_path", t0, chunk=CHUNK, chunks=len(ms),
+    emit(phase, t0, model=model, chunk=CHUNK, chunks=len(ms),
          launches_per_chunk=per_chunk, launches=launches,
          ms_first_chunk=ms[0], ms_per_chunk=timed,
          frames_per_s=CHUNK * len(timed) / (sum(timed) / 1e3),
@@ -758,28 +802,85 @@ def phase_chunk_path(t0, params, rows):
          last_frame_kp_err_px=errs, peak_mem_mb=peak,
          candidates_per_frame=float(det.valid.sum()) / CHUNK,
          nms_b128_ms=nms_ms, nms_b128_bound_ms=nms_bound,
-         nms_b128_bound_by=nms_by, tracker_chunk_ms=k3_ms)
-    for k, r in rows.items():
-        r["launches"] += launches[k]
-    r1 = rows["nms_keep"]
-    r1["ms_b128"], r1["bound_ms_b128"] = nms_ms, nms_bound
-    rows["tracker_chunk"].update(ms_pipeline=k3_ms,
-                                 stage_split_pipeline=k3_split)
+         nms_b128_bound_by=nms_by, tracker_chunk_ms=k3_ms, **prof)
+    for k, n in launches.items():
+        rows[k]["launches"] += n
+    rows["nms_keep"].update({"ms_b128" + sfx: nms_ms,
+                             "bound_ms_b128" + sfx: nms_bound})
+    rows["tracker_chunk"].update({"ms_pipeline" + sfx: k3_ms,
+                                  "stage_split_pipeline" + sfx: k3_split})
     if any(c != {"nms_keep": 1, "auction": 0, "tracker_chunk": 1}
            for c in per_chunk):
-        raise SystemExit(f"chunk path launch counts per chunk {per_chunk}, "
+        raise SystemExit(f"{phase} launch counts per chunk {per_chunk}, "
                          "expected nms_keep 1, tracker_chunk 1, auction 0")
     if max(errs) > 10.0:
-        raise SystemExit(f"chunk tracks miss the synthetic people: {errs}")
+        raise SystemExit(f"{phase}: chunk tracks miss the synthetic people: "
+                         f"{errs}")
 
 
-def phase_chunk_cpu_vs_card(t0, params):
+def profiled_chunk(pipe, frames):
+    """One more chunk of `frames` under torch.profiler, after the counted
+    and timed ones: device busy ms per frame (the kernels' and copies'
+    device time; the stage labels' device-side spans are not busy time),
+    Kernel 4's by name, device operations per frame, the idle share 1 -
+    busy / the profiled wall time, and the 8 device items with the most
+    ms per frame; then the model's device ms per frame (model_device_ms)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from posebyte_tpu_torch.utils.profiling import STAGES
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        pipe.fetch_chunk_outputs(pipe.process_chunk(frames), WIDTH, HEIGHT)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3 / CHUNK
+    per_item = collections.defaultdict(float)
+    ops = 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA \
+                and e.name not in STAGES:
+            per_item[kernel_label(e.name)[:60]] += \
+                e.device_time_total / 1e3 / CHUNK
+            ops += 1
+    busy = sum(per_item.values())
+    conv4 = sum(v for k, v in per_item.items() if "conv_int8" in k)
+    measured = busy > 0
+    top = sorted(per_item.items(), key=lambda kv: -kv[1])[:8]
+    return {"profiled_wall_ms_per_frame": wall,
+            "device_busy_ms_per_frame": busy if measured else None,
+            "conv_int8_device_ms_per_frame": conv4 if measured else None,
+            "device_ops_per_frame": ops / CHUNK if measured else None,
+            "idle_share": 1.0 - busy / wall if measured else None,
+            "top_device_ms_per_frame": top,
+            "model_device_ms_per_frame": model_device_ms(pipe, frames)}
+
+
+def model_device_ms(pipe, frames):
+    """The model's device ms per frame at B = len(frames): forward_heads on
+    the frames' letterbox as the chunk path makes it, run by a device kept
+    ahead of the host (utils/timing.py::device_ms), Kernel 4's launches
+    included at int8. One call: a forward is ~300-500 launches, and the
+    host blocks once ~1000 wait in the card's queue, behind the sleep."""
+    import torch
+    from posebyte_tpu_torch.models.yolo_pose import forward_heads
+    from posebyte_tpu_torch.ops.preprocess import letterbox_flat_nhwc
+    with torch.inference_mode():
+        imgs = letterbox_flat_nhwc(pipe.stage_chunk(frames), WIDTH, HEIGHT,
+                                   pipe.config.detector.input_size,
+                                   selection=True, raw=True).to(pipe.dtype)
+        return device_ms(lambda: forward_heads(pipe.params, imgs,
+                                               pipe.family), 1) / len(frames)
+
+
+def phase_chunk_cpu_vs_card(t0, params, model=V8,
+                            phase="chunk_cpu_vs_card"):
     import numpy as np
     from posebyte_tpu_torch.core import PipelineConfig
     from posebyte_tpu_torch.pipeline import PosePipeline
 
     frames, _ = next(make_chunks(1, CMP_CHUNK))
-    cfg = PipelineConfig(precision="fp32")
+    cfg = PipelineConfig(precision="fp32", model_name=model)
     runs = {}
     for dev in ("cpu", "cuda"):
         pipe = PosePipeline(cfg, params, device=dev)
@@ -792,11 +893,12 @@ def phase_chunk_cpu_vs_card(t0, params):
             kp_err = max(kp_err, float(np.abs(
                 np.stack([t.keypoints for t in a])
                 - np.stack([t.keypoints for t in b])).max()))
-    emit("chunk_cpu_vs_card", t0, frames=CMP_CHUNK, ids_equal=ids_equal,
+    emit(phase, t0, model=model, frames=CMP_CHUNK, ids_equal=ids_equal,
          tracks_per_frame=[len(r) for r in runs["cuda"]],
          max_kp_diff_px=kp_err)
     if not ids_equal or kp_err > 1e-2 or not any(runs["cuda"]):
-        raise SystemExit("the chunk path on the card and the CPU disagree")
+        raise SystemExit(f"{phase}: the chunk path on the card and the CPU "
+                         "disagree")
 
 
 def reid_sources(dev, params_dir):
@@ -1253,29 +1355,48 @@ def phase_kalman_cpu_vs_card(t0, params):
         raise SystemExit("kalman136 on the card and the CPU disagree")
 
 
-def int8_params(params):
+def int8_params(params, model=V8):
     """The int8 configuration: the checkpoint quantised with
     PARTIAL_QUANT_SKIP, activation scales by percentile calibration on the
     card over INT8_CALIB_FRAMES synthetic-scene frames at 640."""
     from posebyte_tpu_torch.models import quant as Q
     from posebyte_tpu_torch.utils.synthetic import calibration_frames
     return Q.calibrate_activations(
-        Q.quantize_params(params), "yolov8n-pose",
+        Q.quantize_params(params), model,
         calibration_frames(INT8_CALIB_FRAMES, LETTERBOX, N_PERSONS, SEED),
         device="cuda")
 
 
-def phase_int8_calibration(t0, params):
+def int8_convs(qparams):
+    """(the w8a8 conv keys Kernel 4 runs, the depthwise ones it does not:
+    models.layers.is_depthwise)."""
+    from posebyte_tpu_torch.models.layers import is_depthwise
+    keys = [k[:-len(".act_scale")] for k in qparams
+            if k.endswith(".act_scale")]
+    return ([k for k in keys if not is_depthwise(k)],
+            [k for k in keys if is_depthwise(k)])
+
+
+def phase_int8_calibration(t0, params, model=V8, phase="int8_calibration"):
+    """Calibrates `model`'s int8 parameters on the card: an activation
+    scale on every conv outside b0-b4 (59 for yolov8n-pose; for
+    yolo11n-pose 85, 7 of them depthwise)."""
+    from posebyte_tpu_torch.models import quant as Q
     t = time.perf_counter()
-    qparams = int8_params(params)
+    qparams = int8_params(params, model)
     scales = [float(v) for k, v in qparams.items()
               if k.endswith(".act_scale")]
-    emit("int8_calibration", t0, calibration_s=time.perf_counter() - t,
+    want = sum(k.split(".")[0] not in Q.PARTIAL_QUANT_SKIP
+               for k in Q.conv_paths(params).values())
+    dense, dw = int8_convs(qparams)
+    emit(phase, t0, model=model, calibration_s=time.perf_counter() - t,
          frames=INT8_CALIB_FRAMES, method="percentile",
-         int8_convs=len(scales), act_scale_min=min(scales),
+         int8_convs=len(scales), kernel4_convs=len(dense),
+         depthwise_convs=len(dw), act_scale_min=min(scales),
          act_scale_max=max(scales))
-    if len(scales) != 59:
-        raise SystemExit(f"{len(scales)} calibrated convolutions, not 59")
+    if len(scales) != want or (model == V8 and want != 59):
+        raise SystemExit(f"{len(scales)} calibrated convolutions, not "
+                         f"{want}")
     return qparams
 
 
@@ -1398,10 +1519,12 @@ FIELDS = ("convs", "ms", "device_ms", "ms_int8_mode", "ms_two_pass",
           "cudnn_bf16_ms", "int_mm_ms")
 
 
-def phase_int8_kernels(t0, qparams, rows):
-    """Kernel 4 against its plain version on the card in both modes, and
-    its times per distinct shape of the int8 path at B = CHUNK, summed per
-    chunk."""
+def phase_int8_kernels(t0, qparams, rows, model=V8, phase="int8_kernels"):
+    """Kernel 4 against its plain version on the card in both modes: every
+    launch of one frame's forward of `model` at int8 on its own inputs,
+    and each distinct shape at B = CHUNK in the path's layout, timed,
+    summed per chunk. The v8 run writes Kernel 4's row; another model's
+    numbers join it under its suffix ("_v11")."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1413,7 +1536,7 @@ def phase_int8_kernels(t0, qparams, rows):
     mism, err = {"int8": 0, "float": 0}, 0.0
     cases = []
 
-    def check(name, x, s_x, wq, scale, bias, k, stride):
+    def check(name, x, s_x, wq, scale, bias, k, stride, listed=True):
         nonlocal err
         mi, ei = conv_mismatches(CI.quantize_activation(x, s_x), wq, scale,
                                  bias, k, stride)
@@ -1421,34 +1544,41 @@ def phase_int8_kernels(t0, qparams, rows):
         mism["int8"] += mi
         mism["float"] += mf
         err = max(err, ei, ef)
-        cases.append({"shape": name, "mismatches_int8_mode": mi,
-                      "mismatches_float_mode": mf})
+        if listed:
+            cases.append({"shape": name, "mismatches_int8_mode": mi,
+                          "mismatches_float_mode": mf})
 
-    # the JAX kernel test's shape: B = 2, 8x8, C = O = 128, no bias; the
-    # int8 values at s_x = 1, and as float inputs at s_x = 0.04 with ties
-    s_x = torch.tensor(0.04, device=dev)
-    n = rng.integers(-140, 140, (2, 128, 8, 8)).astype(np.float32)
-    x = torch.from_numpy((n + np.float32(0.5)) * np.float32(0.04)).to(
-        dev, torch.bfloat16).contiguous(memory_format=torch.channels_last)
-    wq = CI.pack_weights(torch.from_numpy(rng.integers(
-        -127, 128, (128, 128, 3, 3)).astype(np.int8)).to(dev))
-    scale = torch.from_numpy(rng.uniform(0.001, 0.01, 128).astype(
-        np.float32)).to(dev)
-    check("jax_test B=2,8x8,C=O=128,k=3,s=1", x, s_x, wq, scale, None, 3, 1)
+    if model == V8:
+        # the JAX kernel test's shape: B = 2, 8x8, C = O = 128, no bias;
+        # the int8 values at s_x = 1, and as float inputs at s_x = 0.04
+        # with ties
+        s_x = torch.tensor(0.04, device=dev)
+        n = rng.integers(-140, 140, (2, 128, 8, 8)).astype(np.float32)
+        x = torch.from_numpy((n + np.float32(0.5)) * np.float32(0.04)).to(
+            dev, torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        wq = CI.pack_weights(torch.from_numpy(rng.integers(
+            -127, 128, (128, 128, 3, 3)).astype(np.int8)).to(dev))
+        scale = torch.from_numpy(rng.uniform(0.001, 0.01, 128).astype(
+            np.float32)).to(dev)
+        check("jax_test B=2,8x8,C=O=128,k=3,s=1", x, s_x, wq, scale, None, 3,
+              1)
 
-    # every distinct shape of the int8 path, B = 1, its own inputs
-    pipe = PosePipeline(PipelineConfig(precision="int8"), qparams)
+    # every launch of one frame's forward, B = 1, on its own inputs (the
+    # first of each distinct shape listed)
+    pipe = PosePipeline(PipelineConfig(precision="int8", model_name=model),
+                        qparams)
     calls = int8_conv_calls(pipe)
     shapes = {}
     for key, k, stride, x, s_x, wq, scale, bias in calls:
         _, C, H, W = x.shape
         O = scale.shape[0]
         sk = (k, stride, H, W, C, O)
-        if sk not in shapes:
+        first = sk not in shapes
+        if first:
             shapes[sk] = {"key": key, "count": 0,
                           "args": (x, s_x, wq, scale, bias)}
-            check(f"B=1,{H}x{W},C={C},O={O},k={k},s={stride}", x, s_x, wq,
-                  scale, bias, k, stride)
+        check(f"B=1,{H}x{W},C={C},O={O},k={k},s={stride}", x, s_x, wq,
+              scale, bias, k, stride, listed=first)
         shapes[sk]["count"] += 1
 
     # each distinct shape at B = CHUNK in the path's layout: checked, timed
@@ -1518,21 +1648,19 @@ def phase_int8_kernels(t0, qparams, rows):
     total = {f: sum(a[f] for a in inst.values()) for f in FIELDS}
     b_ms, b_by = bound(total["bytes"], total["ops"], INT8_OPS_S)
     b_i8, b_i8_by = bound(total["bytes_int8_mode"], total["ops"], INT8_OPS_S)
-    emit("int8_kernels", t0, cases=cases, mismatches=mism,
+    dense, dw = int8_convs(qparams)
+    emit(phase, t0, model=model, cases=cases, mismatches=mism,
          max_abs_err=err, distinct_shapes=len(shapes),
-         convs_per_frame=len(calls), shapes_b128=per_shape,
+         convs_per_frame=len(calls), calls_checked=len(calls),
+         depthwise_convs_per_frame=len(dw), shapes_b128=per_shape,
          instantiations=inst, per_chunk={
              **total, "bound_ms": b_ms, "bound_by": b_by,
              "bound_ms_int8_mode": b_i8, "bound_by_int8_mode": b_i8_by})
-    rows["conv3x3_int8"] = {
-        "name": "conv3x3_int8", "route": "cuda",
-        "source": "posebyte_tpu_torch/csrc/conv_int8.cu",
-        "replaces": "posebyte_tpu/ops/pallas_conv.py:56",
-        "mismatches": mism, "max_abs_err": err, "launches": 0,
+    row = {
+        "mismatches": mism, "max_abs_err": err,
         "ms": total["ms"], "device_ms": total["device_ms"],
         "ms_per_frame": total["ms"] / CHUNK,
         "plain_ms": total["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": None,
         "ms_int8_mode": total["ms_int8_mode"],
         "plain_ms_int8_mode": total["plain_ms_int8_mode"],
         "bound_ms_int8_mode": b_i8, "bound_by_int8_mode": b_i8_by,
@@ -1546,10 +1674,27 @@ def phase_int8_kernels(t0, qparams, rows):
             for n, a in inst.items()},
         "shape": f"the int8 path's {len(calls)} convolutions per frame at "
                  f"B={CHUNK} (one chunk), bf16 input for the float mode"}
-    if mism["int8"] or mism["float"] or len(calls) != 59 \
-            or len(cases) != 1 + 2 * len(shapes):
-        raise SystemExit(f"Kernel 4: {mism} mismatches with its plain "
-                         f"version, {len(calls)} calls per frame")
+    if model == V8:
+        rows["conv3x3_int8"] = {
+            "name": "conv3x3_int8", "route": "cuda",
+            "source": "posebyte_tpu_torch/csrc/conv_int8.cu",
+            "replaces": "posebyte_tpu/ops/pallas_conv.py:56",
+            "launches": 0, "library_ms": None, **row}
+    else:
+        rows["conv3x3_int8"][suffix(model)[1:]] = {
+            **row, "shapes_b128": [
+                {f: sh[f] for f in ("key", "k", "stride", "H", "W", "C", "O",
+                                    "count", "ms", "device_ms", "plain_ms",
+                                    "bound_ms")} for sh in per_shape]}
+    want = 1 + 2 * len(shapes) if model == V8 else 2 * len(shapes)
+    if mism["int8"] or mism["float"] or len(calls) != len(dense) \
+            or len(cases) != want:
+        raise SystemExit(f"{phase}: Kernel 4: {mism} mismatches with its "
+                         f"plain version, {len(calls)} calls per frame, "
+                         f"{len(dense)} dense w8a8 convs")
+    return {"convs_per_frame": len(calls), "depthwise_convs": len(dw),
+            "mismatches": mism, "ms_per_chunk": total["ms"],
+            "device_ms_per_chunk": total["device_ms"]}
 
 
 def _int8_counts():
@@ -1610,15 +1755,21 @@ def phase_int8_main_path(t0, qparams, rows):
         raise SystemExit(f"int8 tracks miss the synthetic people: {errs}")
 
 
-def phase_int8_chunk_path(t0, qparams, rows):
+def phase_int8_chunk_path(t0, qparams, rows, model=V8,
+                          phase="int8_chunk_path"):
     """The chunk path at int8, K = CHUNK: one warm-up and TIMED_CHUNKS
-    timed chunks; launches per chunk conv_int8 59, nms_keep 1,
-    tracker_chunk 1, auction 0, no eager quantisation; frames/s."""
+    timed chunks; launches per chunk conv_int8 one per dense w8a8 conv (59
+    for yolov8n-pose, 78 for yolo11n-pose, whose 7 depthwise convs take no
+    Kernel 4 launch), nms_keep 1, tracker_chunk 1, auction 0, no eager
+    quantisation; frames/s, and a profiled chunk's device busy and
+    model ms per frame."""
     import numpy as np
     import torch
     from posebyte_tpu_torch.core import PipelineConfig
     from posebyte_tpu_torch.pipeline import PosePipeline
-    pipe = PosePipeline(PipelineConfig(precision="int8"), qparams)
+    n_conv = len(int8_convs(qparams)[0])
+    pipe = PosePipeline(PipelineConfig(precision="int8", model_name=model),
+                        qparams)
     torch.cuda.reset_peak_memory_stats()
     kernels = _int8_counts()
     for fn in kernels.values():
@@ -1641,21 +1792,26 @@ def phase_int8_chunk_path(t0, qparams, rows):
                     raise SystemExit("non-finite int8 track output")
     launches = {k: fn.launches for k, fn in kernels.items()}
     timed = ms[1:]
-    emit("int8_chunk_path", t0, chunk=CHUNK, launches_per_chunk=per_chunk,
-         ms_first_chunk=ms[0], ms_per_chunk=timed,
-         frames_per_s=CHUNK * len(timed) / (sum(timed) / 1e3),
-         last_frame_kp_err_px=errs,
-         peak_mem_mb=torch.cuda.max_memory_allocated() / 2**20)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    prof = profiled_chunk(pipe, frames)
+    fps = CHUNK * len(timed) / (sum(timed) / 1e3)
+    emit(phase, t0, model=model, chunk=CHUNK, launches_per_chunk=per_chunk,
+         ms_first_chunk=ms[0], ms_per_chunk=timed, frames_per_s=fps,
+         last_frame_kp_err_px=errs, peak_mem_mb=peak, **prof)
     rows["conv3x3_int8"]["launches"] += launches["conv_int8"]
     for k, r in rows.items():
         if k in launches and k != "conv3x3_int8":
             r["launches"] += launches[k]
     if any(c != {"nms_keep": 1, "auction": 0, "tracker_chunk": 1,
-                 "conv_int8": 59, "eager_quantize": 0} for c in per_chunk):
-        raise SystemExit(f"int8 chunk launch counts per chunk {per_chunk}")
+                 "conv_int8": n_conv, "eager_quantize": 0}
+           for c in per_chunk):
+        raise SystemExit(f"{phase} launch counts per chunk {per_chunk}, "
+                         f"expected conv_int8 {n_conv}")
     if max(errs) > 10.0:
-        raise SystemExit(f"int8 chunk tracks miss the synthetic people: "
-                         f"{errs}")
+        raise SystemExit(f"{phase}: int8 chunk tracks miss the synthetic "
+                         f"people: {errs}")
+    return {"frames_per_s": fps, "conv_int8_per_chunk": n_conv,
+            "last_frame_kp_err_px": errs, **prof}
 
 
 def fused_quantize(x, s_x, _eye={}):
@@ -1674,7 +1830,7 @@ def fused_quantize(x, s_x, _eye={}):
     return q.permute(0, 2, 3, 1).cpu().to(torch.int8)
 
 
-def int8_quant_witness(qparams, frames):
+def int8_quant_witness(qparams, frames, model=V8):
     """The activation quantisation in Kernel 4's load on the card
     (fused_quantize) against quantize_activation on the CPU, with float32
     activations at LETTERBOX. Returns (ties checked, ties mismatched,
@@ -1699,7 +1855,7 @@ def int8_quant_witness(qparams, frames):
     from posebyte_tpu_torch.ops.preprocess import letterbox_flat_nhwc
     from posebyte_tpu_torch.pipeline import PosePipeline
     conv = L.conv_w8a8
-    cfg = PipelineConfig(precision="int8")
+    cfg = PipelineConfig(precision="int8", model_name=model)
     inputs, imgs = {}, {}
     for dev in ("cpu", "cuda"):
         pipe = PosePipeline(cfg, qparams, device=dev, dtype=torch.float32)
@@ -1747,7 +1903,8 @@ def int8_quant_witness(qparams, frames):
     return n_ties, tie_mism, same_mism, lb_diff, flips, per_frame.tolist()
 
 
-def phase_int8_cpu_vs_card(t0, qparams):
+def phase_int8_cpu_vs_card(t0, qparams, model=V8,
+                           phase="int8_cpu_vs_card"):
     """int8 with float32 activations: a chunk of CMP_CHUNK frames, then 4
     per-frame frames, on the CPU (plain versions) and on the card
     (Kernels 1-4); ids equal, keypoints within INT8_KP_MAX_PX, their median
@@ -1757,7 +1914,7 @@ def phase_int8_cpu_vs_card(t0, qparams):
     from posebyte_tpu_torch.core import PipelineConfig
     from posebyte_tpu_torch.pipeline import PosePipeline
     frames, _ = next(make_chunks(1, CMP_CHUNK + 4))
-    cfg = PipelineConfig(precision="int8")
+    cfg = PipelineConfig(precision="int8", model_name=model)
     runs = {}
     for dev in ("cpu", "cuda"):
         pipe = PosePipeline(cfg, qparams, device=dev, dtype=torch.float32)
@@ -1776,9 +1933,9 @@ def phase_int8_cpu_vs_card(t0, qparams):
             frame_max[-1] = float(diffs[-1].max())
     d = np.concatenate(diffs) if diffs else np.zeros(1)
     n_ties, tie_mism, same_mism, lb_diff, flips, per_frame = \
-        int8_quant_witness(qparams, frames)
+        int8_quant_witness(qparams, frames, model)
     flipped = [k for k, (f, _) in flips.items() if f]
-    emit("int8_cpu_vs_card", t0, chunk=CMP_CHUNK, frames=4,
+    emit(phase, t0, model=model, chunk=CMP_CHUNK, frames=4,
          quantize_ties=n_ties, quantize_ties_mismatches=tie_mism,
          quantize_same_input_mismatches=same_mism,
          letterbox_max_diff=lb_diff,
@@ -1796,7 +1953,240 @@ def phase_int8_cpu_vs_card(t0, qparams):
     if not ids_equal or not any(runs["cuda"]) or np.median(d) > 0.5 \
             or d.max() > INT8_KP_MAX_PX or tie_mism or same_mism \
             or n_ties == 0:
-        raise SystemExit("int8 on the card and the CPU disagree")
+        raise SystemExit(f"{phase}: int8 on the card and the CPU disagree")
+    return {"ids_equal": ids_equal, "max_kp_diff_px": float(d.max()),
+            "median_kp_diff_px": float(np.median(d))}
+
+
+def depthwise_route_check(qparams, model, frames):
+    """The depthwise w8a8 route (ops.conv_int8.conv_w8a8_depthwise: cuDNN's
+    float32 depthwise conv of the quantised values) on the card against
+    its plain version (a float64 conv, exact) on the path's own inputs,
+    recorded by wrapping models.layers.conv_w8a8_depthwise around one
+    forward of the letterboxed `frames` with bf16 activations (the path's)
+    and one with float32 activations (whose outputs carry the sums'
+    every bit): outputs compared by their bits. Returns (calls per
+    forward, elements compared, elements that differ)."""
+    import torch
+    from posebyte_tpu_torch.core import PipelineConfig
+    from posebyte_tpu_torch.models import layers as L
+    from posebyte_tpu_torch.models.yolo_pose import forward_heads
+    from posebyte_tpu_torch.ops import conv_int8 as CI
+    from posebyte_tpu_torch.ops.preprocess import letterbox_flat_nhwc
+    from posebyte_tpu_torch.pipeline import PosePipeline
+    route = L.conv_w8a8_depthwise
+    per_forward, n_el, n_diff = [], 0, 0
+    for dtype in (torch.bfloat16, torch.float32):
+        pipe = PosePipeline(PipelineConfig(precision="int8",
+                                           model_name=model), qparams,
+                            dtype=dtype)
+        calls = []
+
+        def record(*args, calls=calls):
+            out = route(*args)
+            calls.append((args, out))
+            return out
+
+        L.conv_w8a8_depthwise = record
+        try:
+            with torch.inference_mode():
+                flat = pipe.stage_chunk(frames)
+                imgs = letterbox_flat_nhwc(flat, WIDTH, HEIGHT, LETTERBOX,
+                                           selection=True, raw=True)
+                forward_heads(pipe.params, imgs.to(dtype), pipe.family)
+        finally:
+            L.conv_w8a8_depthwise = route
+        per_forward.append(len(calls))
+        with torch.inference_mode():
+            for args, out in calls:
+                want = CI.conv_w8a8_depthwise_plain(*args)
+                n_el += out.numel()
+                n_diff += int((out.float().view(torch.int32)
+                               != want.float().view(torch.int32)).sum())
+        del calls
+    if per_forward[0] != per_forward[1]:
+        raise SystemExit(f"depthwise calls per forward {per_forward}")
+    return per_forward[0], n_el, n_diff
+
+
+def phase_v11_int8(t0, params, rows):
+    """yolo11n-pose at int8: percentile calibration on the card; Kernel 4
+    held against its plain version at every launch of one forward, on its
+    own inputs, and at each distinct shape at B = CHUNK, timed; the
+    depthwise route bit for bit against its plain version on the path's
+    own inputs; the int8 chunk path; the card against the CPU. Each part
+    prints its own line (v11_int8_*), then one line with their verdicts."""
+    qparams = phase_int8_calibration(t0, params, V11,
+                                     "v11_int8_calibration")
+    k4 = phase_int8_kernels(t0, qparams, rows, V11, "v11_int8_kernels")
+    frames, _ = next(make_chunks(1 + TIMED_CHUNKS, CHUNK))
+    dw_calls, dw_el, dw_diff = depthwise_route_check(qparams, V11, frames)
+    chunk = phase_int8_chunk_path(t0, qparams, rows, V11,
+                                  "v11_int8_chunk_path")
+    cmp = phase_int8_cpu_vs_card(t0, qparams, V11, "v11_int8_cpu_vs_card")
+    emit("v11_int8", t0, model=V11,
+         kernel4_launches_per_frame=k4["convs_per_frame"],
+         kernel4_mismatches=k4["mismatches"],
+         kernel4_ms_per_chunk=k4["ms_per_chunk"],
+         kernel4_device_ms_per_chunk=k4["device_ms_per_chunk"],
+         depthwise_convs_per_forward=dw_calls,
+         depthwise_elements_compared=dw_el,
+         depthwise_mismatches=dw_diff, chunk_path=chunk,
+         cpu_vs_card=cmp)
+    if dw_diff or dw_calls != k4["depthwise_convs"] or dw_calls != 7:
+        raise SystemExit(f"v11_int8: the depthwise route differs from its "
+                         f"plain version in {dw_diff} of {dw_el} elements "
+                         f"({dw_calls} calls a forward)")
+
+
+# The Ultralytics module index of each YOLO11 stage of the port's flat
+# dict, and of its head (Ultralytics' yolo11-pose.yaml)
+V11_MODULES = {"b0": 0, "b1": 1, "b2": 2, "b3": 3, "b4": 4, "b5": 5,
+               "b6": 6, "b7": 7, "b8": 8, "b9": 9, "b10": 10, "h13": 13,
+               "h16": 16, "h17": 17, "h19": 19, "h20": 20, "h22": 22,
+               "head": 23}
+PT_FOLD_RTOL = 2.5e-7
+
+
+def ultralytics_name(key):
+    """A YOLO11 conv key of the port -> (its Ultralytics module name,
+    whether it is a plain nn.Conv2d: the head's output convs), written
+    from the Ultralytics layout, not from the port's import."""
+    import re
+    top, _, rest = key.partition(".")
+    rest = "." + rest if rest else ""
+    if top == "head":
+        rest = re.sub(r"\.(\d)_dw$", r".\1.0", rest)
+        rest = re.sub(r"\.(\d)_pw$", r".\1.1", rest)
+    else:
+        rest = re.sub(r"\.m\.(\d+)\.1\.", r".m.\1.", rest)   # C3k2
+        rest = rest.replace(".ffn1", ".ffn.0").replace(".ffn2", ".ffn.1")
+    return f"model.{V11_MODULES[top]}{rest}", top == "head" \
+        and rest.endswith(".2")
+
+
+def write_ultralytics_pt(params, path):
+    """An Ultralytics-structured yolo11n-pose .pt of `params` (float32
+    tensors, identity BatchNorm statistics: g = 1, mean 0, var = 1 - eps,
+    beta the bias), its module classes from a module that exists only
+    while the file is written, so that the load must stub them."""
+    import sys
+    import types
+    import numpy as np
+    import torch
+    from posebyte_tpu_torch.models.weights import BN_EPS
+    sd = {}
+    for key in [k[:-2] for k in params if k.endswith(".w")]:
+        w, b = params[key + ".w"], params[key + ".b"]
+        prefix, plain = ultralytics_name(key)
+        if plain:
+            sd[prefix + ".weight"], sd[prefix + ".bias"] = w, b
+            continue
+        c = w.shape[0]
+        sd.update({prefix + ".conv.weight": w,
+                   prefix + ".bn.weight": np.ones(c, np.float32),
+                   prefix + ".bn.bias": b,
+                   prefix + ".bn.running_mean": np.zeros(c, np.float32),
+                   prefix + ".bn.running_var": np.full(c, 1.0 - BN_EPS,
+                                                       np.float32)})
+    names = ["smoke_ultralytics", "smoke_ultralytics.nn",
+             "smoke_ultralytics.nn.tasks"]
+    mods = {n: types.ModuleType(n) for n in names}
+
+    class PoseModel(torch.nn.Module):
+        pass
+
+    PoseModel.__module__, PoseModel.__qualname__ = names[-1], "PoseModel"
+    mods[names[-1]].PoseModel = PoseModel
+    root = PoseModel()
+    for name, arr in sd.items():
+        *parts, leaf = name.split(".")
+        m = root
+        for part in parts:
+            if part not in m._modules:
+                m.add_module(part, PoseModel())
+            m = m._modules[part]
+        t = torch.from_numpy(np.ascontiguousarray(arr, np.float32))
+        if leaf.startswith("running_"):
+            m.register_buffer(leaf, t)
+        else:
+            m.register_parameter(leaf, torch.nn.Parameter(
+                t, requires_grad=False))
+    sys.modules.update(mods)
+    try:
+        torch.save({"model": root, "epoch": -1}, path)
+    finally:
+        for n in names:
+            del sys.modules[n]
+    return len(sd)
+
+
+def phase_pt_import(t0, params):
+    """The Ultralytics .pt import on yolo11n-pose: the checkpoint written
+    as an Ultralytics .pt (write_ultralytics_pt), read back by
+    models.load_pretrained, its tensors held against load_params' within
+    the BatchNorm fold's rounding (PT_FOLD_RTOL relative: the fold's scale
+    g / sqrt(var + eps) is 1 within an ulp and w * scale rounds once; the
+    biases exact), then PosePipeline on the card with the imported
+    weights against the same with load_params' (fp32, 4 frames): ids equal,
+    keypoints within 1e-2 px; and the same frames at bf16 (the default
+    precision), tracks on the last and finite."""
+    import numpy as np
+    from posebyte_tpu_torch.core import PipelineConfig
+    from posebyte_tpu_torch.models import load_pretrained
+    from posebyte_tpu_torch.pipeline import PosePipeline
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "pt_import")
+    os.makedirs(root, exist_ok=True)
+    path = os.path.join(root, "yolo11n-pose.pt")
+    n_tensors = write_ultralytics_pt(params, path)
+    size_mb = os.path.getsize(path) / 2**20
+    t = time.perf_counter()
+    try:
+        got = load_pretrained(path, V11)
+    finally:
+        os.remove(path)
+    load_s = time.perf_counter() - t
+    if got.keys() != params.keys():
+        raise SystemExit(f"pt_import: keys {sorted(set(got) ^ set(params))}"
+                         " differ")
+    rel, bias_err = 0.0, 0.0
+    for k, want in params.items():
+        d = np.abs(got[k] - want)
+        if k.endswith(".b"):
+            bias_err = max(bias_err, float(d.max()))
+        else:
+            rel = max(rel, float((d / np.maximum(np.abs(want), 1e-30))
+                                 .max()))
+    _, frames = make_frames(4)
+    runs = {}
+    for what, p in (("load_params", params), ("load_pretrained", got)):
+        pipe = PosePipeline(PipelineConfig(precision="fp32",
+                                           model_name=V11), p)
+        runs[what] = [pipe.fetch_outputs(pipe.process_frame(f), WIDTH,
+                                         HEIGHT) for f in frames]
+    ids_equal, kp_err = True, 0.0
+    for a, b in zip(runs["load_params"], runs["load_pretrained"]):
+        ids_equal &= [t.track_id for t in a] == [t.track_id for t in b]
+        if len(a) == len(b) and a:
+            kp_err = max(kp_err, float(np.abs(
+                np.stack([t.keypoints for t in a])
+                - np.stack([t.keypoints for t in b])).max()))
+    pipe = PosePipeline(PipelineConfig(model_name=V11), got)      # bf16
+    bf16 = [pipe.fetch_outputs(pipe.process_frame(f), WIDTH, HEIGHT)
+            for f in frames]
+    finite = all(np.isfinite(r.keypoints).all() for res in bf16
+                 for r in res)
+    emit("pt_import", t0, model=V11, pt_tensors=n_tensors,
+         pt_mb=size_mb, load_s=load_s, weights_max_rel_diff=rel,
+         weights_rel_bar=PT_FOLD_RTOL, bias_max_diff=bias_err,
+         ids_equal=ids_equal, max_kp_diff_px=kp_err,
+         tracks_per_frame=[len(r) for r in runs["load_pretrained"]],
+         bf16_tracks_per_frame=[len(r) for r in bf16], bf16_finite=finite)
+    if rel > PT_FOLD_RTOL or bias_err or not ids_equal or kp_err > 1e-2 \
+            or not any(runs["load_pretrained"]) or not bf16[-1] \
+            or not finite:
+        raise SystemExit("pt_import: the imported checkpoint disagrees")
 
 
 SERVE_STREAMS = 8      # the 8 concurrent 1080p streams of sharding.py:85
@@ -2343,6 +2733,14 @@ def main():
     phase_int8_main_path(t0, qparams, rows)
     phase_int8_chunk_path(t0, qparams, rows)
     phase_int8_cpu_vs_card(t0, qparams)
+    params11, _ = load_params(os.path.join(assets, f"{V11}-synthetic640"
+                                           ".safetensors"))
+    phase_main_path(t0, params11, rows, V11, "v11_main_path")
+    phase_cpu_vs_card(t0, params11, V11, "v11_cpu_vs_card")
+    phase_chunk_path(t0, params11, rows, V11, "v11_chunk_path")
+    phase_chunk_cpu_vs_card(t0, params11, V11, "v11_chunk_cpu_vs_card")
+    phase_v11_int8(t0, params11, rows)
+    phase_pt_import(t0, params11)
     phase_serving_path(t0, params, rows, "frame")
     chunked = phase_serving_path(t0, params, rows, "chunk")
     phase_serving_cpu_vs_card(t0, params, sources)
@@ -2361,7 +2759,10 @@ def main():
             "yardstick_two_pass_ms", "yardstick_cudnn_bf16_ms",
             "yardstick_int_mm_ms", "ms_frame", "bound_ms_frame",
             "frame_candidates", "ms_b128", "bound_ms_b128",
-            "ms_pipeline", "ms_b8", "device_ms_b8", "bound_ms_b8",
+            "ms_pipeline", "ms_frame_v11", "bound_ms_frame_v11",
+            "frame_candidates_v11", "rounds_main_path_v11", "ms_b128_v11",
+            "bound_ms_b128_v11", "ms_pipeline_v11", "v11",
+            "ms_b8", "device_ms_b8", "bound_ms_b8",
             "bound_by_b8", "plain_ms_b8", "ms_b64", "device_ms_b64",
             "bound_ms_b64", "bound_by_b64", "plain_ms_b64",
             "ms_serving_k1_s8", "device_ms_serving_k1_s8",
@@ -2371,8 +2772,8 @@ def main():
             "bound_by_serving_k8_s8", "plain_ms_serving_k8_s8",
             "mismatches",
             "stage_split",
-            "stage_split_pipeline", "stage_split_reid",
-            "stage_split_kalman")
+            "stage_split_pipeline", "stage_split_pipeline_v11",
+            "stage_split_reid", "stage_split_kalman")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in rows.values()]}), flush=True)
     faulthandler.cancel_dump_traceback_later()

@@ -1,12 +1,16 @@
-"""YOLO-pose model family (v8 ported; v11 waits for a later slice) and the
-learned Re-ID head."""
+"""The YOLO-pose families (v8 and v11), their checkpoints (the JAX
+package's safetensors and Ultralytics .pt files) and the learned Re-ID
+head."""
 from .reid_head import apply_reid_head, load_reid_head, reid_head_from_jax
-from .weights import (fold_stem_preprocess, load_params, params_from_jax,
+from .weights import (convert_state_dict, fold_stem_preprocess,
+                      load_params, load_pretrained,
+                      load_ultralytics_checkpoint, params_from_jax,
                       read_safetensors, save_params)
 from .yolo_pose import MODEL_CONFIGS, ModelConfig, forward_heads, make_anchors
 
 __all__ = ["MODEL_CONFIGS", "ModelConfig", "forward_heads", "make_anchors",
            "load_params", "params_from_jax", "read_safetensors",
-           "save_params",
+           "save_params", "load_pretrained", "load_ultralytics_checkpoint",
+           "convert_state_dict",
            "fold_stem_preprocess", "apply_reid_head", "load_reid_head",
            "reid_head_from_jax"]

@@ -1,7 +1,9 @@
-"""YOLOv8 building blocks as plain functions on a flat parameter dict.
+"""YOLOv8 and YOLO11 building blocks as plain functions on a flat
+parameter dict.
 
 Counterparts of posebyte_tpu/models/layers.py (conv2d, conv_block,
-bottleneck, c2f, sppf, upsample2x, the calibration recorder). Activations
+dwconv_block, bottleneck, c2f, c3, c3k2, sppf, the C2PSA attention stage,
+upsample2x, the calibration recorder). Activations
 are NCHW tensors kept in channels_last memory, so cuDNN runs its NHWC
 kernels; weights are OIHW. BatchNorm is already fused into every conv.
 Padding is torch-style symmetric k//2.
@@ -10,7 +12,9 @@ A checkpoint's conv comes in one of three flavours (the JAX conv2d's):
 float {w, b}; weight-only int8 {w int8, scale, b}; w8a8 {w int8, scale,
 act_scale, b}. prepare_params turns them into what conv2d runs: the first
 two as a float conv (the int8 weights dequantised once, as
-w.to(dtype) * scale.to(dtype)), the third as Kernel 4's packed weights.
+w.to(dtype) * scale.to(dtype)), the third as Kernel 4's packed weights, or,
+for a depthwise conv (is_depthwise), as float32 weights holding the int8
+values for ops.conv_int8.conv_w8a8_depthwise (Kernel 4 has no grouped mode).
 """
 from __future__ import annotations
 
@@ -18,7 +22,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..ops.conv_int8 import conv_w8a8, pack_weights
+from ..ops.conv_int8 import conv_w8a8, conv_w8a8_depthwise, pack_weights
 
 # Active calibration recorder (models/quant.py sets a CalibrationRecorder
 # while it runs the forward eagerly; None otherwise).
@@ -93,6 +97,14 @@ class CalibrationRecorder:
             self.records[key].append(percentile_999(x.float().abs()))
 
 
+def is_depthwise(key: str) -> bool:
+    """Whether the conv `key` is depthwise, decided by its place in the
+    model as the JAX package decides it by call site: YOLO11's head convs
+    "head.cv3.{i}.{j}_dw" and the attention's positional conv "...attn.pe".
+    """
+    return key.endswith("_dw") or key.endswith(".attn.pe")
+
+
 def prepare_params(params: dict, dtype: torch.dtype, device) -> dict:
     """A checkpoint's flat dict (numpy or tensors, models.load_params) ->
     the tensors conv2d runs on, on `device`:
@@ -102,7 +114,8 @@ def prepare_params(params: dict, dtype: torch.dtype, device) -> dict:
     - w8a8 convs: "wq" Kernel 4's packed int8 weights, "dq" the dequant
       factor float32(act_scale * scale) [O], "act_scale" a 0-d float32
       tensor on the device (the quantisation divides by it), "b"
-      float32."""
+      float32; a depthwise w8a8 conv has "wdw", its int8 weights [C, 1,
+      k, k] as float32 values, in place of "wq"."""
     out = {}
     for key in params:
         if not key.endswith(".w"):
@@ -113,7 +126,10 @@ def prepare_params(params: dict, dtype: torch.dtype, device) -> dict:
         if p + ".act_scale" in params:
             s_x = np.asarray(params[p + ".act_scale"], np.float32)
             scale = np.asarray(params[p + ".scale"], np.float32)
-            out[p + ".wq"] = pack_weights(w).to(device)
+            if is_depthwise(p):
+                out[p + ".wdw"] = w.to(device, torch.float32)
+            else:
+                out[p + ".wq"] = pack_weights(w).to(device)
             out[p + ".dq"] = torch.from_numpy(
                 np.ascontiguousarray(s_x * scale)).to(device)
             out[p + ".act_scale"] = torch.from_numpy(s_x).to(device)
@@ -129,11 +145,13 @@ def prepare_params(params: dict, dtype: torch.dtype, device) -> dict:
     return out
 
 
-def conv2d(p: dict, key: str, x: torch.Tensor, stride: int = 1):
+def conv2d(p: dict, key: str, x: torch.Tensor, stride: int = 1,
+           groups: int = 1):
     """Conv with bias on prepare_params' tensors: a float conv (cuDNN on
-    the card) for p[key + ".w"] [O, I, k, k], or the w8a8 conv for
-    p[key + ".wq"]: x quantised to int8 with the calibrated scale and
-    convolved, on the card in one Kernel 4 launch, out in x's dtype."""
+    the card) for p[key + ".w"] [O, I / groups, k, k], or the w8a8 conv
+    for p[key + ".wq"]: x quantised to int8 with the calibrated scale and
+    convolved, on the card in one Kernel 4 launch, out in x's dtype; or
+    for p[key + ".wdw"] the depthwise w8a8 conv (groups = channels)."""
     if _CALIBRATION_RECORDER is not None:
         _CALIBRATION_RECORDER.record(key, x)
     wq = p.get(key + ".wq")
@@ -141,14 +159,26 @@ def conv2d(p: dict, key: str, x: torch.Tensor, stride: int = 1):
         k = round(wq.shape[1] ** 0.5)
         return conv_w8a8(x, p[key + ".act_scale"], wq, p[key + ".dq"],
                          p[key + ".b"], k, stride)
+    wdw = p.get(key + ".wdw")
+    if wdw is not None:
+        if groups != x.shape[1]:
+            raise ValueError(f"{key}: a depthwise w8a8 conv needs groups "
+                             f"= channels, got {groups}")
+        return conv_w8a8_depthwise(x, p[key + ".act_scale"], wdw,
+                                   p[key + ".dq"], p[key + ".b"], stride)
     w = p[key + ".w"]
     return F.conv2d(x, w, p[key + ".b"], stride=stride,
-                    padding=w.shape[-1] // 2)
+                    padding=w.shape[-1] // 2, groups=groups)
 
 
 def conv_block(p: dict, key: str, x: torch.Tensor, stride: int = 1):
     """Conv + (folded) BN + SiLU: ultralytics `Conv`."""
     return F.silu(conv2d(p, key, x, stride))
+
+
+def dwconv_block(p: dict, key: str, x: torch.Tensor, stride: int = 1):
+    """Depthwise conv + SiLU: ultralytics `DWConv` (YOLO11's heads)."""
+    return F.silu(conv2d(p, key, x, stride, groups=x.shape[1]))
 
 
 def bottleneck(p: dict, key: str, x: torch.Tensor, add: bool):
@@ -167,6 +197,83 @@ def c2f(p: dict, key: str, x: torch.Tensor, shortcut: bool):
         parts.append(bottleneck(p, f"{key}.m.{i}", parts[-1], shortcut))
         i += 1
     return conv_block(p, key + ".cv2", torch.cat(parts, dim=1))
+
+
+def c3(p: dict, key: str, x: torch.Tensor):
+    """CSP bottleneck with 3 convs (ultralytics C3; YOLO11's C3k with
+    3x3 bottlenecks): cv1 and cv2 both read x, the bottlenecks (always
+    with the shortcut, c_h -> c_h) follow cv1."""
+    a = conv_block(p, key + ".cv1", x)
+    i = 0
+    while f"{key}.m.{i}.cv1.b" in p:
+        a = bottleneck(p, f"{key}.m.{i}", a, True)
+        i += 1
+    b = conv_block(p, key + ".cv2", x)
+    return conv_block(p, key + ".cv3", torch.cat([a, b], dim=1))
+
+
+def c3k2(p: dict, key: str, x: torch.Tensor):
+    """YOLO11's C3k2: a C2f whose inner blocks are C3k (a C3 of 3x3
+    bottlenecks) or bottlenecks (hidden width c_h / 2), both with the
+    shortcut. The JAX tree holds inner block i as a (kind, params) tuple,
+    so its parameters sit under "m.{i}.1."; it is a C3k where it has a
+    cv3."""
+    y = conv_block(p, key + ".cv1", x)
+    c_h = y.shape[1] // 2
+    parts = [y[:, :c_h], y[:, c_h:]]
+    i = 0
+    while f"{key}.m.{i}.1.cv1.b" in p:
+        m = f"{key}.m.{i}.1"
+        parts.append(c3(p, m, parts[-1]) if m + ".cv3.b" in p
+                     else bottleneck(p, m, parts[-1], True))
+        i += 1
+    return conv_block(p, key + ".cv2", torch.cat(parts, dim=1))
+
+
+def attention(p: dict, key: str, x: torch.Tensor, num_heads: int):
+    """Ultralytics `Attention` over the H * W positions of x [B, C, H, W]
+    (channels_last memory), after the JAX _attention: qkv's channels
+    grouped per head (head h's channels h * (2 kd + hd) + j: its query,
+    key, value), scores q . k in float32 times kd ** -0.5 after the
+    product, softmax in float32 cast to x's type, attn . v summed in
+    float32 and cast to x's type; plus the depthwise positional conv of v;
+    then proj. The head count comes from the configuration (qkv's width
+    is 2 C for any count)."""
+    B, C, H, W = x.shape
+    nh = num_heads
+    hd = C // nh
+    kd = hd // 2
+    N = H * W
+    qkv = conv2d(p, key + ".qkv", x)                       # [B, 2C, H, W]
+    qkv = qkv.permute(0, 2, 3, 1).reshape(B, N, nh, 2 * kd + hd)
+    q, k, v = qkv[..., :kd], qkv[..., kd:2 * kd], qkv[..., 2 * kd:]
+    attn = torch.einsum("bnhk,bmhk->bhnm", q.float(), k.float()) \
+        * kd ** -0.5
+    attn = torch.softmax(attn, dim=-1).to(x.dtype)
+    out = torch.einsum("bhnm,bmhd->bnhd", attn.float(), v.float()) \
+        .to(x.dtype).reshape(B, H, W, C).permute(0, 3, 1, 2)
+    vv = v.reshape(B, H, W, C).permute(0, 3, 1, 2)
+    pe = conv2d(p, key + ".pe", vv, groups=C)
+    return conv2d(p, key + ".proj", out + pe)
+
+
+def psablock(p: dict, key: str, x: torch.Tensor, num_heads: int):
+    """PSABlock: x + attention, then x + ffn2(SiLU(ffn1(x)))."""
+    x = x + attention(p, key + ".attn", x, num_heads)
+    return x + conv2d(p, key + ".ffn2", conv_block(p, key + ".ffn1", x))
+
+
+def c2psa(p: dict, key: str, x: torch.Tensor):
+    """YOLO11's C2PSA: cv1, its second half through the PSA blocks, cv2;
+    max(1, c_h // 64) heads, c_h half of cv1's width."""
+    y = conv_block(p, key + ".cv1", x)
+    c_h = y.shape[1] // 2
+    a, b = y[:, :c_h], y[:, c_h:]
+    i = 0
+    while f"{key}.m.{i}.ffn1.b" in p:
+        b = psablock(p, f"{key}.m.{i}", b, max(1, c_h // 64))
+        i += 1
+    return conv_block(p, key + ".cv2", torch.cat([a, b], dim=1))
 
 
 def sppf(p: dict, key: str, x: torch.Tensor, k: int = 5):

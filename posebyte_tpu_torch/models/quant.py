@@ -24,8 +24,9 @@ from . import layers as L
 # policy: the stem and the first two C2f stages).
 PARTIAL_QUANT_SKIP = ("b0", "b1", "b2", "b3", "b4")
 
-# In the v8 parameter tree the children of these keys, and of every "m"
-# (C2f's bottlenecks), are list items: the head's three levels.
+# In the parameter tree the children of these keys, and of every "m"
+# (the inner blocks of C2f, C3, C3k2 and C2PSA), are list items: the head's
+# three levels.
 _LIST_PARENTS = ("head.cv2", "head.cv3", "head.cv4")
 
 
@@ -60,13 +61,17 @@ def quantize_params(params: dict) -> dict:
 
 
 def jax_path(key: str) -> str:
-    """A conv key of the port ("b6.m.0.cv1", "head.cv2.0.0") -> the JAX
-    package's dotted path of the same conv ("b6.m[0].cv1",
-    "head.cv2[0].0"): list items are written [i]."""
+    """A conv key of the port ("b6.m.0.cv1", "head.cv2.0.0",
+    "b6.m.0.1.cv1") -> the JAX package's dotted path of the same conv
+    ("b6.m[0].cv1", "head.cv2[0].0", "b6.m[0][1].cv1"): list and tuple
+    items are written [i]. YOLO11's C3k2 holds its inner block i as a
+    (kind, params) tuple, so the digit after "m.{i}" is a tuple index."""
     out = ""
     for part in key.split("."):
-        if part.isdigit() and (out.rsplit(".", 1)[-1] == "m"
-                               or out in _LIST_PARENTS):
+        last = out.rsplit(".", 1)[-1]
+        if part.isdigit() and (last == "m" or out in _LIST_PARENTS
+                               or (last.startswith("m[")
+                                   and last.count("[") == 1)):
             out += f"[{part}]"
         else:
             out = f"{out}.{part}" if out else part
@@ -74,10 +79,15 @@ def jax_path(key: str) -> str:
 
 
 def _path_order(path: str):
-    """Sort key giving conv_paths the JAX walk's order (dict keys sorted
-    as strings, list items by index)."""
-    return [int(p) if p.isdigit() else p
-            for p in path.replace("[", ".").replace("]", "").split(".")]
+    """Sort key giving conv_paths the JAX walk's order: dict keys sorted
+    as strings (the v11 head's "0_dw" < "0_pw" < ... < "2"), list and
+    tuple items by index."""
+    order = []
+    for part in path.split("."):
+        name, *items = part.split("[")
+        order.append((0, name))
+        order += [(1, int(i[:-1])) for i in items]
+    return order
 
 
 def conv_paths(params: dict) -> dict:

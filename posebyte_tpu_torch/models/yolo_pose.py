@@ -1,6 +1,6 @@
-"""YOLOv8-pose forward to the undecoded head outputs, after
-posebyte_tpu/models/yolo_pose.py:246-326 (forward_heads, make_anchors,
-_dfl).
+"""YOLOv8-pose and YOLO11-pose forward to the undecoded head outputs,
+after posebyte_tpu/models/yolo_pose.py (ModelConfig, the two backbones
+and necks, _head_level, forward_heads, make_anchors, _dfl).
 
 The head layout matches the JAX package: box logits [B, A, 64], class
 logits [B, A, 1], raw keypoints [B, A, 51], with A the row-major flatten of
@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 
 import numpy as np
 import torch
@@ -23,16 +24,42 @@ NK = 51          # 17 keypoints * 3
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
+    """A model's scaling, as the JAX package's ModelConfig
+    (posebyte_tpu/models/yolo_pose.py:36-72): the layer counts and widths
+    models.weights.convert_state_dict reads a checkpoint by."""
     name: str
     family: str              # "v8" | "v11"
+    depth: float
+    width: float
+    max_channels: int
+    c3k_everywhere: bool = False   # v11 m/l/x: every C3k2 holds C3k blocks
+
+    def ch(self, c: int) -> int:
+        """Scaled channel count, rounded up to a multiple of 8
+        (ultralytics make_divisible)."""
+        c = min(c, self.max_channels)
+        return max(8, int(math.ceil(c * self.width / 8) * 8))
+
+    def n(self, n: int) -> int:
+        """Scaled count of a stage's inner blocks."""
+        return max(1, round(n * self.depth))
 
 
-MODEL_CONFIGS = {n: ModelConfig(n, "v8") for n in (
-    "yolov8n-pose", "yolov8s-pose", "yolov8m-pose", "yolov8l-pose",
-    "yolov8x-pose")}
-MODEL_CONFIGS.update({n: ModelConfig(n, "v11") for n in (
-    "yolo11n-pose", "yolo11s-pose", "yolo11m-pose", "yolo11l-pose",
-    "yolo11x-pose")})
+MODEL_CONFIGS = {
+    "yolov8n-pose": ModelConfig("yolov8n-pose", "v8", 0.33, 0.25, 1024),
+    "yolov8s-pose": ModelConfig("yolov8s-pose", "v8", 0.33, 0.50, 1024),
+    "yolov8m-pose": ModelConfig("yolov8m-pose", "v8", 0.67, 0.75, 768),
+    "yolov8l-pose": ModelConfig("yolov8l-pose", "v8", 1.00, 1.00, 512),
+    "yolov8x-pose": ModelConfig("yolov8x-pose", "v8", 1.00, 1.25, 512),
+    "yolo11n-pose": ModelConfig("yolo11n-pose", "v11", 0.50, 0.25, 1024),
+    "yolo11s-pose": ModelConfig("yolo11s-pose", "v11", 0.50, 0.50, 1024),
+    "yolo11m-pose": ModelConfig("yolo11m-pose", "v11", 0.50, 1.00, 512,
+                                c3k_everywhere=True),
+    "yolo11l-pose": ModelConfig("yolo11l-pose", "v11", 1.00, 1.00, 512,
+                                c3k_everywhere=True),
+    "yolo11x-pose": ModelConfig("yolo11x-pose", "v11", 1.00, 1.50, 512,
+                                c3k_everywhere=True),
+}
 
 
 def _backbone_neck_v8(p, x):
@@ -56,6 +83,31 @@ def _backbone_neck_v8(p, x):
     return o3, o4, o5
 
 
+def _backbone_neck_v11(p, x):
+    x = L.conv_block(p, "b0", x, 2)
+    x = L.conv_block(p, "b1", x, 2)
+    x = L.c3k2(p, "b2", x)
+    x = L.conv_block(p, "b3", x, 2)
+    p3 = L.c3k2(p, "b4", x)           # ch(512) wide, unlike v8's ch(256)
+    x = L.conv_block(p, "b5", p3, 2)
+    p4 = L.c3k2(p, "b6", x)
+    x = L.conv_block(p, "b7", p4, 2)
+    x = L.c3k2(p, "b8", x)
+    x = L.sppf(p, "b9", x)
+    p5 = L.c2psa(p, "b10", x)
+
+    n4 = L.c3k2(p, "h13", torch.cat([L.upsample2x(p5), p4], dim=1))
+    o3 = L.c3k2(p, "h16", torch.cat([L.upsample2x(n4), p3], dim=1))
+    d4 = torch.cat([L.conv_block(p, "h17", o3, 2), n4], dim=1)
+    o4 = L.c3k2(p, "h19", d4)
+    d5 = torch.cat([L.conv_block(p, "h20", o4, 2), p5], dim=1)
+    o5 = L.c3k2(p, "h22", d5)
+    return o3, o4, o5
+
+
+_BACKBONES = {"v8": _backbone_neck_v8, "v11": _backbone_neck_v11}
+
+
 def _flat_level(t: torch.Tensor) -> torch.Tensor:
     """[B, C, H, W] -> [B, H*W, C] (row-major anchors, as the JAX NHWC
     reshape gives them)."""
@@ -63,23 +115,35 @@ def _flat_level(t: torch.Tensor) -> torch.Tensor:
     return t.permute(0, 2, 3, 1).reshape(B, -1, Cc)
 
 
-def _head_level(p, i, x):
+def _head_level(p, i, x, family):
     def branch(name):
         k = f"head.{name}.{i}"
         y = L.conv_block(p, f"{k}.1", L.conv_block(p, f"{k}.0", x))
         return _flat_level(L.conv2d(p, f"{k}.2", y))
-    return branch("cv2"), branch("cv3"), branch("cv4")
+
+    if family != "v11":
+        return branch("cv2"), branch("cv3"), branch("cv4")
+    # YOLO11's class branch: depthwise -> pointwise, twice, then 1x1
+    k = f"head.cv3.{i}"
+    c = L.dwconv_block(p, f"{k}.0_dw", x)
+    c = L.conv_block(p, f"{k}.0_pw", c)
+    c = L.dwconv_block(p, f"{k}.1_dw", c)
+    c = L.conv_block(p, f"{k}.1_pw", c)
+    return branch("cv2"), _flat_level(L.conv2d(p, f"{k}.2", c)), \
+        branch("cv4")
 
 
 def forward_heads(params: dict, x: torch.Tensor, family: str = "v8"):
     """Input [B, S, S, 3] NHWC -> undecoded head outputs
     (box_logits [B, A, 64], cls_logits [B, A, 1], kpt_raw [B, A, 51]),
-    computed in x's dtype. params: the port's flat dict of tensors."""
-    if family != "v8":
-        raise NotImplementedError(f"the {family} family is not ported yet")
+    computed in x's dtype. params: the port's flat dict of tensors;
+    family: "v8" or "v11" (ModelConfig.family)."""
+    if family not in _BACKBONES:
+        raise ValueError(f"unknown model family {family!r}")
     x = x.permute(0, 3, 1, 2)          # NCHW view of NHWC memory
-    feats = _backbone_neck_v8(params, x)
-    levels = [_head_level(params, i, f) for i, f in enumerate(feats)]
+    feats = _BACKBONES[family](params, x)
+    levels = [_head_level(params, i, f, family)
+              for i, f in enumerate(feats)]
     return tuple(torch.cat([lv[j] for lv in levels], dim=1)
                  for j in range(3))
 

@@ -26,6 +26,10 @@ and running its plain version for a CPU tensor:
   conv_int8_plain, the JAX branch's arithmetic.
 - conv_int8(xq, ...) takes the quantised, channel-padded int8 activation
   (conv3x3_int8_pallas's contract).
+YOLO11's depthwise w8a8 convs (the JAX package's feature_group_count = C
+int8 conv, plain XLA and no Pallas kernel) have no Kernel 4 mode:
+conv_w8a8_depthwise runs them as a float32 depthwise conv of the
+quantised values, exact because every sum is an integer below 2^24.
 The plain version is exact: every
 product of two int8 values and every partial sum of a convolution (at most
 9 * Cp * 127^2, far below 2^53) is an integer that float64 holds exactly,
@@ -66,6 +70,13 @@ def pack_weights(w) -> torch.Tensor:
     return out
 
 
+def _quantized(x: torch.Tensor, s_x: torch.Tensor) -> torch.Tensor:
+    """clamp(round(x / s_x), -127, 127) in float32, x's shape: the one
+    quantisation rule of the port's eager paths (division on x's device,
+    round half to even)."""
+    return torch.clamp(torch.round(x.float() / s_x), -127, 127)
+
+
 def quantize_activation(x: torch.Tensor, s_x: torch.Tensor) -> torch.Tensor:
     """x [B, C, H, W] (any float type and memory format) -> int8 NHWC
     [B, H, W, Cp], clamp(round(x / s_x), -127, 127) with round half to
@@ -79,7 +90,7 @@ def quantize_activation(x: torch.Tensor, s_x: torch.Tensor) -> torch.Tensor:
     if s_x.device != x.device:
         raise ValueError("quantize_activation: s_x must lie on x's device")
     B, C, H, W = x.shape
-    q = torch.clamp(torch.round(x.float() / s_x), -127, 127).to(torch.int8)
+    q = _quantized(x, s_x).to(torch.int8)
     out = torch.zeros((B, H, W, padded(C, C_ALIGN)), dtype=torch.int8,
                       device=x.device)
     out[..., :C] = q.permute(0, 2, 3, 1)
@@ -296,3 +307,71 @@ def conv_int8(xq: torch.Tensor, w_packed: torch.Tensor, scale: torch.Tensor,
     if xq.device.type != "cpu":
         raise ValueError(f"conv_int8: unsupported device {xq.device}")
     return conv_int8_plain(xq, w_packed, scale, bias, k, stride, out_dtype)
+
+
+def _check_depthwise(x, s_x, w, dq, bias):
+    if x.dtype not in (torch.bfloat16, torch.float32) or x.dim() != 4:
+        raise TypeError("conv_w8a8_depthwise: x bf16 or float32 [B, C, H, "
+                        "W]")
+    if s_x.dtype != torch.float32 or s_x.dim() != 0 \
+            or s_x.device != x.device:
+        raise ValueError("conv_w8a8_depthwise: s_x a 0-d float32 tensor on "
+                         "x's device")
+    C = x.shape[1]
+    if w.dtype != torch.float32 or w.dim() != 4 or w.shape[:2] != (C, 1) \
+            or w.shape[2] != w.shape[3] or w.shape[2] % 2 == 0:
+        raise TypeError(f"conv_w8a8_depthwise: float32 weights [{C}, 1, k, "
+                        f"k] holding int8 values, got {tuple(w.shape)} "
+                        f"{w.dtype}")
+    for name, t in (("dq", dq), ("bias", bias)):
+        if t.dtype != torch.float32 or tuple(t.shape) != (C,):
+            raise TypeError(f"conv_w8a8_depthwise: {name} float32 [{C}]")
+
+
+def _depthwise_epilogue(acc, dq, bias, dtype):
+    """The w8a8 epilogue on the sums acc [B, C, Ho, Wo] (float32 or
+    float64 holding integers): float32(acc) * dq, then + bias, then one
+    rounding to dtype; channels_last."""
+    y = acc.float() * dq[:, None, None]
+    y = y + bias[:, None, None]
+    return y.to(dtype).contiguous(memory_format=torch.channels_last)
+
+
+def conv_w8a8_depthwise(x: torch.Tensor, s_x: torch.Tensor,
+                        w: torch.Tensor, dq: torch.Tensor, bias: torch.Tensor,
+                        stride: int = 1) -> torch.Tensor:
+    """The depthwise w8a8 conv of YOLO11 (the JAX package's int8 conv with
+    feature_group_count = C): x [B, C, H, W] quantised with s_x by the rule
+    of quantize_activation, convolved per channel with the int8 weights w
+    (their values as float32 [C, 1, k, k]) in float32, then the w8a8
+    epilogue (dq = float32(s_x * s_w) [C], the bias), out in x's dtype.
+
+    The float32 conv is exact: each output sums k * k products of two
+    integers of magnitude at most 127, below 9 * 127^2 < 2^24 for k = 3,
+    as long as the library's algorithm multiplies and adds the values
+    themselves (a Winograd or FFT transform would not be exact; on the
+    card the result is held against conv_w8a8_depthwise_plain bit for
+    bit). Runs on x's device, the CPU or the card (cuDNN: a library conv,
+    no Pallas kernel stands behind the JAX function)."""
+    _check_depthwise(x, s_x, w, dq, bias)
+    k = w.shape[-1]
+    acc = F.conv2d(_quantized(x, s_x), w, stride=stride, padding=k // 2,
+                   groups=x.shape[1])
+    return _depthwise_epilogue(acc, dq, bias, x.dtype)
+
+
+def conv_w8a8_depthwise_plain(x: torch.Tensor, s_x: torch.Tensor,
+                              w: torch.Tensor, dq: torch.Tensor,
+                              bias: torch.Tensor, stride: int = 1,
+                              out_dtype=None) -> torch.Tensor:
+    """conv_w8a8_depthwise's plain version: the integer sums by a float64
+    depthwise conv (exact in any order), then the same epilogue;
+    out_dtype=torch.int32 returns the sums themselves."""
+    _check_depthwise(x, s_x, w, dq, bias)
+    k = w.shape[-1]
+    acc = F.conv2d(_quantized(x, s_x).double(), w.double(), stride=stride,
+                   padding=k // 2, groups=x.shape[1])
+    if out_dtype == torch.int32:
+        return acc.to(torch.int32).contiguous(
+            memory_format=torch.channels_last)
+    return _depthwise_epilogue(acc, dq, bias, out_dtype or x.dtype)

@@ -980,3 +980,65 @@ def test_nms_kernel_stream_batches_matches_plain(card, B):
                         for i in range(B)])
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+def test_v11_pipeline_card_matches_cpu(card):
+    """yolo11n-pose (its 640 checkpoint at input 192 on 320x240 frames, as
+    tests/test_torch_v11.py runs it against JAX) in fp32 on the card
+    against the CPU: 4 per-frame frames and a chunk of K = 4, ids equal,
+    keypoints within 1e-2 px (the scene's 4 people tracked from the third
+    frame, 2-4 of them in view at its end)."""
+    from posebyte_tpu_torch.core import DetectorConfig, PipelineConfig
+    from posebyte_tpu_torch.models import load_params
+    from posebyte_tpu_torch.pipeline import PosePipeline
+    from posebyte_tpu_torch.utils.synthetic import SyntheticScene, \
+        render_frame
+
+    asset = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "assets",
+        "yolo11n-pose-synthetic640.safetensors")
+    params, name = load_params(asset)
+    cfg = PipelineConfig(detector=DetectorConfig(input_size=192,
+                                                 num_anchors=756),
+                         model_name=name, precision="fp32")
+    pipes = [PosePipeline(cfg, params, device=d) for d in ("cpu", card)]
+    scene = SyntheticScene(4, 320, 240, seed=11)
+    frames = np.stack([render_frame(scene.step(), 320, 240)
+                       for _ in range(8)])
+    results = [[p.fetch_outputs(p.process_frame(f), 320, 240)
+                for f in frames[:4]] for p in pipes]
+    results = [r + p.fetch_chunk_outputs(p.process_chunk(frames[4:]), 320,
+                                         240) for r, p in zip(results, pipes)]
+    for cpu, gpu in zip(*results):
+        assert [t.track_id for t in gpu] == [t.track_id for t in cpu]
+        for x, y in zip(gpu, cpu):
+            np.testing.assert_allclose(x.keypoints, y.keypoints, atol=1e-2)
+    assert sum(len(r) for r in results[1]) >= 16
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("C,H", [(64, 80), (128, 20), (256, 20)])
+def test_depthwise_w8a8_route_matches_plain_on_card(card, dtype, C, H):
+    """YOLO11's depthwise w8a8 route (cuDNN's float32 depthwise conv of the
+    quantised values) equal bit for bit to its plain version (a float64
+    conv) on the card, at the channel counts and sizes of yolo11n-pose's
+    seven depthwise convs at 640, ties and values beyond the clamp
+    included."""
+    from posebyte_tpu_torch.ops import conv_int8 as CI
+    rng = np.random.default_rng(C + H)
+    s = np.float32(0.04)
+    n = rng.integers(-140, 140, (8, C, H, H)).astype(np.float32)
+    x = torch.from_numpy((n + np.float32(0.5) * rng.integers(0, 2, n.shape))
+                         * s).to(card, dtype).contiguous(
+        memory_format=torch.channels_last)
+    w = torch.from_numpy(rng.integers(-127, 128, (C, 1, 3, 3)).astype(
+        np.float32)).to(card)
+    dq = torch.from_numpy(s * rng.uniform(0.001, 0.02, C).astype(
+        np.float32)).to(card)
+    b = torch.from_numpy(rng.normal(0, 0.5, C).astype(np.float32)).to(card)
+    args = (x, torch.tensor(s, device=card), w, dq, b)
+    got = CI.conv_w8a8_depthwise(*args)
+    want = CI.conv_w8a8_depthwise_plain(*args)
+    assert got.dtype == dtype and got.is_cuda
+    assert torch.equal(got.float().view(torch.int32),
+                       want.float().view(torch.int32))

@@ -65,8 +65,9 @@ def jax_tree(flat: dict, name: str = NAME):
                         for f in ("w", "scale", "act_scale", "b")
                         if prefix + f in flat}
             return {k: fill(v, f"{prefix}{k}.") for k, v in node.items()}
-        if isinstance(node, list):
-            return [fill(v, f"{prefix}{i}.") for i, v in enumerate(node)]
+        if isinstance(node, (list, tuple)):      # v11's (kind, params)
+            return type(node)(fill(v, f"{prefix}{i}.")
+                              for i, v in enumerate(node))
         if hasattr(node, "shape"):
             return leaf(flat[prefix[:-1]])
         return node                                   # static metadata
@@ -292,3 +293,122 @@ def test_calibrate_and_quantize_sources(tmp_path, port_params):
     with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
         Q.calibrate_and_quantize(port_params, NAME,
                                  calib_dir=str(tmp_path))
+
+
+# ---- YOLO11 ---------------------------------------------------------------
+
+V11_ASSET = os.path.join(os.path.dirname(ASSET),
+                         "yolo11n-pose-synthetic640.safetensors")
+V11 = "yolo11n-pose"
+
+
+@pytest.fixture(scope="module")
+def v11_params():
+    flat, name = W.load_params(V11_ASSET)
+    assert name == V11
+    return flat, jax_tree(flat, V11)
+
+
+def _quantised(params):
+    """The conv keys outside PARTIAL_QUANT_SKIP (b0-b4)."""
+    return [k for k in Q.conv_paths(params).values()
+            if k.split(".")[0] not in Q.PARTIAL_QUANT_SKIP]
+
+
+def test_jax_path_of_v11_keys():
+    """C3k2 holds inner block i as a (kind, params) tuple: the port's
+    "m.{i}.1" is the JAX path's m[i][1], also inside a C3k's own list;
+    the v11 head's keys stay dict keys."""
+    assert Q.jax_path("b6.m.0.1.cv1") == "b6.m[0][1].cv1"
+    assert Q.jax_path("b6.m.0.1.m.1.cv2") == "b6.m[0][1].m[1].cv2"
+    assert Q.jax_path("h13.m.1.1.cv2") == "h13.m[1][1].cv2"
+    assert Q.jax_path("b10.m.0.attn.pe") == "b10.m[0].attn.pe"
+    assert Q.jax_path("head.cv3.2.0_dw") == "head.cv3[2].0_dw"
+    assert Q.jax_path("b2.m.1.cv1") == "b2.m[1].cv1"          # v8's C2f
+
+
+@pytest.mark.parametrize("name", ["yolo11n-pose", "yolo11m-pose"])
+def test_conv_paths_of_the_v11_tree_match_jax(v11_params, name):
+    """conv_paths on a v11 flat dict: JAX's paths, in JAX's order (dict
+    keys sorted as strings: the head's "0_dw" < "0_pw" < "1_dw" < "1_pw" <
+    "2" sit where list indices sit elsewhere)."""
+    if name == V11:
+        flat, tree = v11_params
+    else:
+        tree = jax.eval_shape(lambda k: init_params(k, name),
+                              jax.random.PRNGKey(0))
+        flat = W.params_from_jax(jax.tree.map(
+            lambda s: np.zeros(s.shape, np.float32), tree))
+    paths = Q.conv_paths(flat)
+    assert list(paths) == list(JQ.conv_paths(tree))
+    assert paths["head.cv3[1].1_dw"] == "head.cv3.1.1_dw"
+    assert paths["b8.m[0][1].m[1].cv2"] == "b8.m.0.1.m.1.cv2"
+
+
+def test_quantize_params_v11_matches_jax(v11_params):
+    """Bit for bit on yolo11n-pose: every conv outside b0-b4 int8, the
+    seven depthwise convs (the head's *_dw, the attention's pe) included."""
+    flat, tree = v11_params
+    jq = _jax_convs(JQ.quantize_params(tree))
+    pq = Q.quantize_params(flat)
+    paths = Q.conv_paths(pq)
+    assert list(paths) == list(jq)
+    n_int8 = n_dw = 0
+    for path, key in paths.items():
+        jn = jq[path]
+        np.testing.assert_array_equal(pq[key + ".w"],
+                                      np.transpose(jn["w"], (3, 2, 0, 1)))
+        np.testing.assert_array_equal(pq[key + ".b"], jn["b"])
+        assert ("scale" in jn) == (key + ".scale" in pq)
+        if "scale" in jn:
+            np.testing.assert_array_equal(pq[key + ".scale"], jn["scale"])
+            n_int8 += 1
+            n_dw += L.is_depthwise(key)
+    assert (n_int8, n_dw) == (len(_quantised(pq)), 7)
+
+
+def test_calibrate_v11_matches_jax(v11_params):
+    """Percentile calibration of yolo11n-pose on the same images: an
+    act_scale on every quantised conv, the depthwise ones included, within
+    RTOL of JAX's."""
+    flat, tree = v11_params
+    imgs = calibration_frames(4, 64, seed=5)
+    jconvs = _jax_convs(JQ.calibrate_activations(JQ.quantize_params(tree),
+                                                 V11, imgs))
+    pq = Q.calibrate_activations(Q.quantize_params(flat), V11, imgs,
+                                 device="cpu")
+    n = 0
+    for path, key in Q.conv_paths(pq).items():
+        assert ("act_scale" in jconvs[path]) == (key + ".act_scale" in pq)
+        if key + ".act_scale" in pq:
+            want = float(jconvs[path]["act_scale"])
+            assert abs(float(pq[key + ".act_scale"]) - want) <= RTOL * want
+            n += 1
+    assert n == len(_quantised(pq))
+
+
+def test_calibration_cache_v11_round_trips_between_packages(tmp_path,
+                                                            v11_params):
+    """A v11 cache written by either package loads in the other, scale
+    for scale, and the two packages write the same JSON."""
+    flat, tree = v11_params
+    rng = np.random.default_rng(7)
+    pq = Q.quantize_params(flat)
+    for key in Q.conv_paths(pq).values():
+        if key + ".scale" in pq:
+            pq[key + ".act_scale"] = np.asarray(rng.uniform(0.01, 0.2),
+                                                np.float32)
+    port_cache = tmp_path / "port.json"
+    n = Q.save_calibration_cache(pq, str(port_cache))
+    jq = JQ.quantize_params(tree)
+    assert JQ.load_calibration_cache(jq, str(port_cache)) == n == \
+        len(_quantised(pq))
+    jax_cache = tmp_path / "jax.json"
+    assert JQ.save_calibration_cache(jq, str(jax_cache)) == n
+    assert json.loads(jax_cache.read_text()) == json.loads(
+        port_cache.read_text())
+    back = Q.quantize_params(flat)
+    assert Q.load_calibration_cache(back, str(jax_cache)) == n
+    for key in Q.conv_paths(pq).values():
+        if key + ".act_scale" in pq:
+            assert back[key + ".act_scale"] == pq[key + ".act_scale"]
