@@ -160,6 +160,35 @@ Phases, each printing one JSON line with its elapsed seconds:
                tracks that come back equal the server's own outputs
                un-letterboxed (within 1e-2 px, the JSON's rounding); closing
                it stops its threads
+  accuracy     the trained checkpoints from pixels through cli.evaluate's
+               loop (evaluate_tracks) on the held-out clip (seed 424242, 3
+               people, 640x360, the port's renderer): yolov8n-pose 256 (48
+               frames), yolov8n-pose 640 and yolo11n-pose 640 (24), each
+               fp32 and bf16, per frame and at chunk 8: OKS-mAP, AP50,
+               MOTA, IDF1 and id switches against the JAX package's bars
+               (mAP 0.90 / 0.88 / 0.86, MOTA 0.95, at most 1 switch), the
+               chunked ids equal to the per-frame ids, launches 1 / 3 / 0
+               per frame and 1 / 0 / 1 per chunk; then yolov8n-pose 640 at
+               int8, calibrated by percentile on the card over the clip's
+               first 4 frames (59 Kernel 4 launches a frame, no eager
+               quantisation): OKS-mAP against the fp32 tracks and against
+               the ground truth beside the JAX percentile bars (printed)
+  hard_clip    the crowded clip (CrowdedScene seed 86002, 8 people, 96
+               frames), yolov8n-pose 256, fp32, per frame: the card against
+               the JAX bars (MOTA 0.51, IDF1 0.47, at most 29 switches), the
+               CPU's run beside it, and the card with the learned Re-ID
+               head at reid_weight 0.3 (reported)
+  cli          cli.benchmark.main(-n 200, -e the v8n-640 checkpoint, --json,
+               --stages) on the card, its Kernel 1 and 2 launches exactly
+               those of its components, then Kernel 1 on its 100 candidates
+               and Kernel 2 on its 50 x 50 cost against their plain
+               versions, timed ("*_n100", "*_50x50" row keys); cli.export
+               of pt_import's .pt at bf16 and at int8 (synthetic
+               calibration), each read back equal; the demo's loop
+               (cli.demo.track_frames) per frame and at chunk 8 over 16
+               frames with the native drawing: frames/s, launches, the
+               drawn bytes equal to the CPU's drawing of the same tracks,
+               and a fixed drawing equal to DRAW_DIGEST
 Each path's launch counts are set to 0 just before it runs and read just
 after. Then a line {"kernels": [...]} with each kernel's launches (summed
 over the paths' runs, yolo11n-pose's included), error, times and bound
@@ -213,6 +242,42 @@ INT8_CALIB_FRAMES = 16  # one calibration batch
 # keypoint by up to ~4 px at stride 32, and the flips cascade through the
 # layers after them.
 INT8_KP_MAX_PX = 8.0
+
+
+# sha256 of draw_scene()'s bytes as the native rasteriser draws them on
+# the host the tests run on (tests/test_torch_video.py holds it there); the
+# cli phase draws the same on the card's host and compares.
+DRAW_DIGEST = ("ae39c999b61339699c4ea470497e13c9"
+               "9e2fb1c4aa69243bfc269967d7c7e7a7")
+
+
+def draw_scene():
+    """A fixed 640x360 drawing through the port's native rasteriser: the
+    tracks of six people of the synthetic scene (ids across the palette's
+    wrap, one box leaving the frame, low-confidence keypoints) by
+    draw_all_tracks, then draw_stats. numpy and the native library only."""
+    import numpy as np
+    from posebyte_tpu_torch.tracker.output import TrackOutput
+    from posebyte_tpu_torch.utils import native
+    from posebyte_tpu_torch.utils.synthetic import SyntheticScene, pose_bbox
+    from posebyte_tpu_torch.utils.video import draw_all_tracks, draw_stats
+    if not native.available():
+        raise SystemExit("the native rasteriser did not build")
+    poses = SyntheticScene(6, 640, 360, seed=SEED).step()
+    poses[2, :5, 2] = 0.1
+    poses[4, :, 0] += 150.0
+    tracks = [TrackOutput(track_id=7 * i + 1, score=0.5 + 0.07 * i,
+                          bbox=pose_bbox(p), keypoints=p)
+              for i, p in enumerate(poses)]
+    frame = np.full((360, 640, 3), 40, np.uint8)
+    draw_all_tracks(frame, tracks)
+    draw_stats(frame, 29.97, len(tracks), 12.34)
+    return frame
+
+
+def draw_digest():
+    import hashlib
+    return hashlib.sha256(draw_scene().tobytes()).hexdigest()
 
 
 def emit(phase, t0, **kw):
@@ -580,13 +645,13 @@ def phase_main_path(t0, params, rows, model=V8, phase="main_path"):
     dets, tracks, ms = [], [], []
     nms_calls, nms_keep = [], N.nms_keep    # the candidates pose_nms keeps
     N.nms_keep = lambda *a: (nms_calls.append(a), nms_keep(*a))[1]
-    auction_calls, auction = [], S.auction_assign_cuda   # 3 tiers a frame
+    auction_calls, auction = [], S._auction    # 3 tiers a frame
 
     def record(*a):
         out = auction(*a)
         auction_calls.append(a + out)
         return out
-    S.auction_assign_cuda = record
+    S._auction = record
     try:
         for fr in frames:
             t = time.perf_counter()
@@ -601,7 +666,7 @@ def phase_main_path(t0, params, rows, model=V8, phase="main_path"):
                     raise SystemExit("non-finite track output")
     finally:
         N.nms_keep = nms_keep
-        S.auction_assign_cuda = auction
+        S._auction = auction
     launches = {"nms_keep": nms_keep_cuda.launches,
                 "auction": auction_assign_cuda.launches,
                 "tracker_chunk": tracker_chunk_cuda.launches}
@@ -2123,7 +2188,9 @@ def write_ultralytics_pt(params, path):
 
 def phase_pt_import(t0, params):
     """The Ultralytics .pt import on yolo11n-pose: the checkpoint written
-    as an Ultralytics .pt (write_ultralytics_pt), read back by
+    as an Ultralytics .pt (write_ultralytics_pt; left in build/pt_import
+    for the cli phase, which removes it; returns its path and the imported
+    parameters), read back by
     models.load_pretrained, its tensors held against load_params' within
     the BatchNorm fold's rounding (PT_FOLD_RTOL relative: the fold's scale
     g / sqrt(var + eps) is 1 within an ulp and w * scale rounds once; the
@@ -2142,10 +2209,7 @@ def phase_pt_import(t0, params):
     n_tensors = write_ultralytics_pt(params, path)
     size_mb = os.path.getsize(path) / 2**20
     t = time.perf_counter()
-    try:
-        got = load_pretrained(path, V11)
-    finally:
-        os.remove(path)
+    got = load_pretrained(path, V11)
     load_s = time.perf_counter() - t
     if got.keys() != params.keys():
         raise SystemExit(f"pt_import: keys {sorted(set(got) ^ set(params))}"
@@ -2187,6 +2251,7 @@ def phase_pt_import(t0, params):
             or not any(runs["load_pretrained"]) or not bf16[-1] \
             or not finite:
         raise SystemExit("pt_import: the imported checkpoint disagrees")
+    return path, got
 
 
 SERVE_STREAMS = 8      # the 8 concurrent 1080p streams of sharding.py:85
@@ -2644,6 +2709,398 @@ def phase_frontend(t0, srv, rows):
         raise SystemExit("the frontend's round trip failed")
 
 
+# ---- the accuracy loop, the hard clip and the command line ---------------
+
+ACC_W, ACC_H, ACC_SEED = 640, 360, 424242   # tests/test_trained_pixels.py
+ACC_CHUNK = 8
+# (model, input size, frames, OKS-mAP bar): the JAX package's per-checkpoint
+# bars (tests/test_trained_pixels.py:60-67); MOTA >= 0.95 and at most one
+# id switch for each.
+ACC_RUNS = ((V8, 256, 48, 0.90), (V8, 640, 24, 0.88), (V11, 640, 24, 0.86))
+ACC_MOTA, ACC_SWITCHES = 0.95, 1
+# int8 against fp32 and against the ground truth, percentile calibration
+# (tests/test_trained_pixels.py:153, measured there at 256 on detections)
+INT8_ACC_BARS = {"agree_mAP": 0.86, "agree_AP50": 0.95, "gt_mAP": 0.86}
+INT8_ACC_CALIB = 4
+# the crowded clip of tests/test_hard_tracking.py:125 and its bars
+HARD_SEED, HARD_FRAMES, HARD_PERSONS = 86002, 96, 8
+HARD_BARS = {"MOTA": 0.51, "IDF1": 0.47, "id_switches": 29}
+BENCH_ITERS = 200
+
+
+def acc_pipeline(params, model, size, precision, device=None, conf=0.30,
+                 det_conf=None, reid_params=None, **tracker):
+    """The accuracy loop's pipeline (tests/test_trained_pixels.py
+    ::_pipeline): input `size`, detector confidence det_conf (default
+    conf), tracker thresholds from conf."""
+    from posebyte_tpu_torch.core import (DetectorConfig, PipelineConfig,
+                                         TrackerConfig)
+    from posebyte_tpu_torch.pipeline import PosePipeline
+    num_anchors = sum((size // s) ** 2 for s in (8, 16, 32))
+    cfg = PipelineConfig(
+        detector=DetectorConfig(input_size=size, num_anchors=num_anchors,
+                                conf_threshold=det_conf or conf),
+        tracker=TrackerConfig.from_conf_threshold(conf, **tracker),
+        model_name=model, precision=precision)
+    return PosePipeline(cfg, params, device=device, reid_params=reid_params)
+
+
+def held_out_clip(n):
+    """The held-out clip (seed 424242, 3 people, 640x360) rendered by the
+    port's renderer: (frames, ground-truth poses)."""
+    from posebyte_tpu_torch.utils.synthetic import SyntheticScene, \
+        render_frame
+    scene = SyntheticScene(n_persons=3, width=ACC_W, height=ACC_H,
+                           seed=ACC_SEED, scale_range=(80.0, 130.0),
+                           speed=4.0)
+    gts = [g.copy() for g in scene.frames(n)]
+    return [render_frame(g, ACC_W, ACC_H) for g in gts], gts
+
+
+def counted_run(rows, kernels, fn):
+    """fn() with the kernels' launch counts set to 0 just before and read
+    just after, added to the rows: (fn's result, the counts)."""
+    for k in kernels.values():
+        k.launches = 0
+    out = fn()
+    launches = {k: f.launches for k, f in kernels.items()}
+    for k, n in launches.items():
+        row = "conv3x3_int8" if k == "conv_int8" else k
+        if row in rows:
+            rows[row]["launches"] = rows[row].get("launches", 0) + n
+    return out, launches
+
+
+def track_ids(tracks):
+    return [[t.track_id for t in f] for f in tracks]
+
+
+def phase_accuracy(t0, rows, assets):
+    """The trained checkpoints from pixels on the card through cli.evaluate's
+    loop (evaluate_tracks) on the held-out clip rendered by the port:
+    yolov8n-pose 256 (48 frames), yolov8n-pose 640 and yolo11n-pose 640
+    (24), each fp32 and bf16, per frame and at chunk 8; every run holds
+    its checkpoint's bars, and the chunked run's ids equal the per-frame
+    run's. Then yolov8n-pose 640 at int8, calibrated by percentile on the
+    card over the clip's first 4 frames: its tracks' OKS-mAP against the
+    fp32 tracks and against the ground truth over the frames after them,
+    beside the JAX package's bars (printed, not asserted: those were
+    measured on detections at 256)."""
+    import numpy as np
+    import torch
+    from posebyte_tpu_torch.cli.evaluate import evaluate_tracks
+    from posebyte_tpu_torch.models import load_params, quant
+    from posebyte_tpu_torch.ops.preprocess import letterbox_image
+    from posebyte_tpu_torch.utils.evaluation import keypoint_map
+    frames, gts = held_out_clip(max(r[2] for r in ACC_RUNS))
+    kernels = _int8_counts()
+    runs, bad, fp32_640 = [], [], None
+    for model, size, n, bar in ACC_RUNS:
+        params, _ = load_params(os.path.join(
+            assets, f"{model}-synthetic{size}.safetensors"))
+        for precision in ("fp32", "bf16"):
+            ids = {}
+            for chunk in (0, ACC_CHUNK):
+                pipe = acc_pipeline(params, model, size, precision)
+                tracks = []
+                t = time.perf_counter()
+                s, launches = counted_run(rows, kernels, lambda: (
+                    evaluate_tracks(pipe, frames[:n], gts[:n], ACC_W, ACC_H,
+                                    warmup=pipe.config.tracker.min_hits,
+                                    chunk=chunk, record=tracks)))
+                wall = time.perf_counter() - t
+                ids[chunk] = track_ids(tracks)
+                if (model, size, precision, chunk) == (V8, 640, "fp32", 0):
+                    fp32_640 = tracks
+                want = {"nms_keep": n // chunk, "auction": 0,
+                        "tracker_chunk": n // chunk} if chunk else \
+                    {"nms_keep": n, "auction": 3 * n, "tracker_chunk": 0}
+                run = {"model": model, "size": size, "precision": precision,
+                       "chunk": chunk, "frames": s["frames"],
+                       "mAP": s["mAP"], "AP50": s["AP50"], "AP75": s["AP75"],
+                       "MOTA": s["MOTA"], "IDF1": s["IDF1"],
+                       "id_switches": s["id_switches"],
+                       "misses": s["misses"],
+                       "false_positives": s["false_positives"],
+                       "mAP_bar": bar, "launches": launches,
+                       "frames_per_s_cold": n / wall}
+                runs.append(run)
+                if s["mAP"] < bar or s["MOTA"] < ACC_MOTA or \
+                        s["id_switches"] > ACC_SWITCHES or \
+                        any(launches[k] != v for k, v in want.items()):
+                    bad.append(run)
+            runs[-1]["chunk_ids_equal"] = ids[0] == ids[ACC_CHUNK]
+            if ids[0] != ids[ACC_CHUNK]:
+                bad.append(runs[-1])
+    # int8: yolov8n-pose 640, percentile calibration on the first frames
+    params, _ = load_params(os.path.join(
+        assets, f"{V8}-synthetic640.safetensors"))
+    calib = np.stack([letterbox_image(torch.from_numpy(f), 640)
+                      .permute(1, 2, 0).numpy()
+                      for f in frames[:INT8_ACC_CALIB]])
+    qparams = quant.calibrate_activations(quant.quantize_params(params), V8,
+                                          calib, method="percentile")
+    pipe = acc_pipeline(qparams, V8, 640, "int8")
+    n = len(fp32_640)
+    tracks = []
+    s, launches = counted_run(rows, kernels, lambda: evaluate_tracks(
+        pipe, frames[:n], gts[:n], ACC_W, ACC_H,
+        warmup=pipe.config.tracker.min_hits, record=tracks))
+
+    def kps(fr):
+        return np.stack([t.keypoints for t in fr]) if fr else \
+            np.zeros((0, 17, 3), np.float32)
+
+    later = range(INT8_ACC_CALIB, n)
+    preds = [kps(tracks[i]) for i in later]
+    scores = [np.asarray([t.score for t in tracks[i]], np.float32)
+              for i in later]
+    agree = keypoint_map([kps(fp32_640[i]) for i in later], preds, scores)
+    vs_gt = keypoint_map([gts[i] for i in later], preds, scores)
+    int8 = {"model": V8, "size": 640, "calibration": "percentile",
+            "calib_frames": INT8_ACC_CALIB, "frames": s["frames"],
+            "agree_mAP": agree["mAP"], "agree_AP50": agree["AP50"],
+            "gt_mAP": vs_gt["mAP"], "gt_AP50": vs_gt["AP50"],
+            "MOTA": s["MOTA"], "IDF1": s["IDF1"],
+            "id_switches": s["id_switches"], "jax_bars": INT8_ACC_BARS,
+            "meets_jax_bars": agree["mAP"] >= INT8_ACC_BARS["agree_mAP"]
+            and agree["AP50"] >= INT8_ACC_BARS["agree_AP50"]
+            and vs_gt["mAP"] >= INT8_ACC_BARS["gt_mAP"],
+            "launches": launches}
+    emit("accuracy", t0, clip=f"SyntheticScene seed {ACC_SEED}, 3 people, "
+         f"{ACC_W}x{ACC_H}, the port's renderer", runs=runs, int8=int8,
+         failed=bad)
+    if bad or launches["conv_int8"] != 59 * n:
+        raise SystemExit(f"accuracy: {len(bad)} runs miss their bars, "
+                         "launch counts or chunked ids")
+
+
+def hard_clip():
+    """The crowded clip of tests/test_hard_tracking.py:125, rendered by the
+    port's renderer: (frames, poses, active masks)."""
+    import numpy as np
+    from posebyte_tpu_torch.utils.synthetic import CrowdedScene, \
+        render_frame
+    scene = CrowdedScene(n_persons=HARD_PERSONS, width=ACC_W, height=ACC_H,
+                         seed=HARD_SEED, scale_range=(80.0, 130.0),
+                         speed=5.0, entry_exit=True, clip_len=HARD_FRAMES)
+    gts = [(p.copy(), a.copy()) for p, a in scene.frames(HARD_FRAMES)]
+    palette = np.asarray([(60 + (60 * i) % 196, 200, 255 - (50 * i) % 200)
+                          for i in range(HARD_PERSONS)])
+    return ([render_frame(p[a], ACC_W, ACC_H, colors=palette[a])
+             for p, a in gts], [p for p, _ in gts], [a for _, a in gts])
+
+
+def phase_hard_clip(t0, rows, assets):
+    """The crowded clip (CrowdedScene seed 86002, 8 people, 96 frames),
+    yolov8n-pose 256, fp32, per frame, detector confidence 0.15 and tracker
+    thresholds from 0.30, as tests/test_hard_tracking.py runs it: on the
+    card (its bars asserted) and on the CPU beside it; then on the card
+    with the learned Re-ID head at reid_weight 0.3 (reported, no bar)."""
+    from posebyte_tpu_torch.cli.evaluate import evaluate_tracks
+    from posebyte_tpu_torch.models import load_params, load_reid_head
+    frames, gts, active = hard_clip()
+    params, _ = load_params(os.path.join(
+        assets, f"{V8}-synthetic256.safetensors"))
+    kernels = _kernel_counts()
+    keys = ("MOTA", "IDF1", "id_switches", "misses", "false_positives",
+            "mAP")
+    res, launches = {}, {}
+    for what, dev, extra in (
+            ("card", None, {}), ("cpu", "cpu", {}),
+            ("card_reid_head", None, {"reid_weight": REID_WEIGHT})):
+        reid = load_reid_head(os.path.join(assets, HEAD_ASSET)) \
+            if extra else None
+        pipe = acc_pipeline(params, V8, 256, "fp32", dev, conf=0.30,
+                            det_conf=0.15, reid_params=reid, **extra)
+        t = time.perf_counter()
+        s, launches[what] = counted_run(rows, kernels, lambda: (
+            evaluate_tracks(pipe, frames, gts, ACC_W, ACC_H,
+                            warmup=pipe.config.tracker.min_hits,
+                            gt_active=active)))
+        res[what] = {**{k: s[k] for k in keys},
+                     "s": time.perf_counter() - t}
+    card = res["card"]
+    emit("hard_clip", t0, clip=f"CrowdedScene seed {HARD_SEED}, "
+         f"{HARD_PERSONS} people, {HARD_FRAMES} frames, the port's renderer",
+         bars=HARD_BARS, **res, launches=launches)
+    want = {"nms_keep": HARD_FRAMES, "auction": 3 * HARD_FRAMES,
+            "tracker_chunk": 0}
+    if card["MOTA"] < HARD_BARS["MOTA"] or card["IDF1"] < HARD_BARS["IDF1"] \
+            or card["id_switches"] > HARD_BARS["id_switches"] \
+            or launches["card"] != want or launches["card_reid_head"] != want:
+        raise SystemExit("hard_clip: the card misses the bars or the "
+                         "launch counts")
+
+
+def phase_cli(t0, rows, assets, pt_path, pt_params):
+    """The command line on the card:
+    - cli.benchmark.main(["-n", 200, "-e", the v8n-640 checkpoint, "--json",
+      "--stages"]): every component's ms and the stage table, Kernel 1 and
+      Kernel 2 launched exactly as often as its components call them; then
+      Kernel 1 on the benchmark's 100 candidates and Kernel 2 on its 50 x 50
+      cost against their plain versions, timed beside their bounds (the
+      kernels line's *_n100 and *_50x50 keys);
+    - cli.export.main on the .pt that pt_import wrote, at bf16 and at int8
+      with --allow-synthetic-calib, each read back equal (bf16: the
+      imported tensors; int8: their quantised weights, every quantised conv
+      calibrated);
+    - the demo's loop (cli.demo.track_frames) per frame and at chunk 8 over
+      16 rendered 1280x720 frames (bf16, v8n-640) with draw_all_tracks and
+      draw_stats through the native rasteriser: frames/s of the loop with
+      its drawing (after one warm pass of the same loop, the native
+      library built before it), the drawn bytes equal to the CPU's
+      drawing of the same tracks, and chip_smoke's fixed drawing equal to
+      DRAW_DIGEST."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+    from posebyte_tpu_torch.cli import benchmark, demo, export
+    from posebyte_tpu_torch.models import load_params, quant
+    from posebyte_tpu_torch.ops import assignment as A
+    from posebyte_tpu_torch.ops import nms as N
+    from posebyte_tpu_torch.utils.video import draw_all_tracks, draw_stats
+
+    kernels = _kernel_counts()
+    v8 = os.path.join(assets, f"{V8}-synthetic640.safetensors")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        (rc, launches) = counted_run(rows, kernels, lambda: benchmark.main(
+            ["-n", str(BENCH_ITERS), "-e", v8, "--json", "--stages"]))
+    text = out.getvalue().strip().splitlines()
+    bench = json.loads(text[-1])
+    n = BENCH_ITERS
+    # loop_ms makes one warm-up call; the end-to-end run 3 warm-up frames
+    want = {"nms_keep": (n + 1) + (n + 3),
+            "auction": (n + 1) + 3 * (n + 1) + 3 * (n + 3) + 3 * (n + 1),
+            "tracker_chunk": 0}
+    bench_ok = rc == 0 and launches == want and all(
+        v > 0 for v in bench.values())
+
+    # Kernel 1 on the benchmark's candidates, in pose_nms's score order
+    dev = torch.device("cuda")
+    fx = benchmark.fixture(dev)
+    det = fx["nms"]
+    order = torch.argsort(-det.scores, stable=True)
+    p, b, v = (det.poses[order].contiguous(), det.boxes[order].contiguous(),
+               det.valid[order].contiguous())
+    got, want_keep = N.nms_keep_cuda(p, b, v, 0.55, 0.55), \
+        N.nms_keep_plain(p, b, v, 0.55, 0.55)
+    nms_mism = int((got != want_keep).sum())
+    rows["nms_keep"]["mismatches"] += nms_mism
+    rows["nms_keep"].update(
+        ms_n100=cuda_ms(lambda: N.nms_keep_cuda(p, b, v, 0.55, 0.55), 200),
+        device_ms_n100=device_ms(lambda: N.nms_keep_cuda(p, b, v, 0.55,
+                                                         0.55), 200),
+        plain_ms_n100=cuda_ms(lambda: N.nms_keep_plain(p, b, v, 0.55, 0.55),
+                              10),
+        bound_ms_n100=bound(*nms_work(p, b, v, 0.55))[0])
+    # Kernel 2 on the benchmark's 50 x 50 cost, every row active
+    cost = fx["cost"]
+    r1, c1 = A.auction_assign_cuda(cost)
+    r2, c2, rounds = A.auction_assign_rounds(cost)
+    auc_mism = int((r1 != r2).sum()) + int((c1 != c2).sum())
+    rows["auction"]["mismatches"] += auc_mism
+    R, Cc = cost.shape
+    ops = 6 * R * Cc * rounds + (4 * R * Cc
+                                 if rounds < A.auction_iterations(R) else 0)
+    rows["auction"].update(
+        ms_50x50=cuda_ms(lambda: A.auction_assign_cuda(cost), 200),
+        device_ms_50x50=device_ms(lambda: A.auction_assign_cuda(cost), 200),
+        plain_ms_50x50=cuda_ms(lambda: A.auction_assign(cost), 5),
+        bound_ms_50x50=bound(R * Cc * 4 + 4 * (R + Cc), ops)[0],
+        rounds_50x50=rounds)
+
+    # export of the .pt at bf16 and int8
+    exported, root = {}, os.path.dirname(pt_path)
+    try:
+        for precision in ("bf16", "int8"):
+            path = os.path.join(root, f"{V11}-{precision}.safetensors")
+            argv = ["-m", pt_path, "-o", path, "-p", precision]
+            if precision == "int8":
+                argv.append("--allow-synthetic-calib")
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                rc = export.main(argv)
+            got, name = load_params(path)
+            os.remove(path)
+            want_p = pt_params if precision == "bf16" else \
+                quant.quantize_params(pt_params)
+            equal = rc == 0 and name == V11 and all(
+                np.array_equal(got[k], want_p[k]) for k in want_p) and (
+                set(got) - set(want_p) == {
+                    k[:-len(".scale")] + ".act_scale" for k in want_p
+                    if k.endswith(".scale")})
+            exported[precision] = {
+                "rc": rc, "read_back_equal": equal,
+                "act_scales": sum(k.endswith(".act_scale") for k in got),
+                "printed": [ln for ln in out.getvalue().splitlines()
+                            if ln.startswith("[export]")]}
+    finally:
+        if os.path.exists(pt_path):
+            os.remove(pt_path)
+
+    # the demo's loop with drawing, per frame and at chunk 8
+    from posebyte_tpu_torch.core import PipelineConfig
+    from posebyte_tpu_torch.pipeline import PosePipeline
+    params, _ = load_params(v8)
+    _, frames = make_frames(FRAMES)
+    loops = {}
+    digest = draw_digest()               # builds the native library first
+    for chunk in (0, ACC_CHUNK):
+        pipe = PosePipeline(PipelineConfig(model_name=V8), params)   # bf16
+
+        def loop():
+            drawn, t_prev = [], time.perf_counter()
+            for frame, tracks in demo.track_frames(
+                    pipe, (f.copy() for f in frames), WIDTH, HEIGHT, chunk):
+                now = time.perf_counter()
+                ms = (now - t_prev) * 1e3
+                draw_all_tracks(frame, tracks)
+                draw_stats(frame, 1e3 / max(ms, 1e-3), len(tracks), ms)
+                drawn.append((frame, tracks, ms))
+                t_prev = time.perf_counter()
+            return drawn
+        loop()                                         # the warm pass
+        pipe.reset()
+        t = time.perf_counter()
+        drawn, launches_demo = counted_run(rows, kernels, loop)
+        wall = time.perf_counter() - t
+        same = True
+        for orig, (frame, tracks, ms) in zip(frames, drawn):
+            again = orig.copy()
+            draw_all_tracks(again, tracks)
+            draw_stats(again, 1e3 / max(ms, 1e-3), len(tracks), ms)
+            same &= again.tobytes() == frame.tobytes()
+        loops[chunk] = {"frames_per_s": FRAMES / wall,
+                        "ms_per_frame": [round(d[2], 3) for d in drawn],
+                        "launches": launches_demo,
+                        "drawn_bytes_equal_cpu": same,
+                        "ids": track_ids([d[1] for d in drawn])}
+    demo_ok = all(r["drawn_bytes_equal_cpu"] for r in loops.values()) and \
+        loops[0]["launches"] == {"nms_keep": FRAMES, "auction": 3 * FRAMES,
+                                 "tracker_chunk": 0} and \
+        loops[ACC_CHUNK]["launches"] == {
+            "nms_keep": FRAMES // ACC_CHUNK, "auction": 0,
+            "tracker_chunk": FRAMES // ACC_CHUNK} and \
+        digest == DRAW_DIGEST
+    emit("cli", t0, benchmark=bench, benchmark_launches=launches,
+         benchmark_launches_expected=want,
+         stages=[ln for ln in text[:-1] if "us/frame" in ln],
+         nms_n100_mismatches=nms_mism, auction_50x50_mismatches=auc_mism,
+         auction_50x50_rounds=rounds, export=exported,
+         demo={("per_frame" if k == 0 else f"chunk_{k}"): {
+             kk: vv for kk, vv in r.items() if kk != "ids"}
+             for k, r in loops.items()},
+         demo_chunk_ids_equal=loops[0]["ids"] == loops[ACC_CHUNK]["ids"],
+         draw_digest_equal=digest == DRAW_DIGEST)
+    if not bench_ok or nms_mism or auc_mism or not demo_ok or not all(
+            e["read_back_equal"] for e in exported.values()):
+        raise SystemExit("cli: a command-line check failed")
+
+
 def kernel_label(mangled):
     """A kernel's mangled name -> nms_keep<dominance>, nms_keep<greedy,
     register words a lane>, auction, tracker_chunk<cv>,
@@ -2740,12 +3197,15 @@ def main():
     phase_chunk_path(t0, params11, rows, V11, "v11_chunk_path")
     phase_chunk_cpu_vs_card(t0, params11, V11, "v11_chunk_cpu_vs_card")
     phase_v11_int8(t0, params11, rows)
-    phase_pt_import(t0, params11)
+    pt_path, pt_params = phase_pt_import(t0, params11)
     phase_serving_path(t0, params, rows, "frame")
     chunked = phase_serving_path(t0, params, rows, "chunk")
     phase_serving_cpu_vs_card(t0, params, sources)
     phase_frontend(t0, chunked, rows)
     del chunked
+    phase_accuracy(t0, rows, assets)
+    phase_hard_clip(t0, rows, assets)
+    phase_cli(t0, rows, assets, pt_path, pt_params)
 
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
@@ -2770,6 +3230,9 @@ def main():
             "plain_ms_serving_k1_s8", "ms_serving_k8_s8",
             "device_ms_serving_k8_s8", "bound_ms_serving_k8_s8",
             "bound_by_serving_k8_s8", "plain_ms_serving_k8_s8",
+            "ms_n100", "device_ms_n100", "plain_ms_n100", "bound_ms_n100",
+            "ms_50x50", "device_ms_50x50", "plain_ms_50x50",
+            "bound_ms_50x50", "rounds_50x50",
             "mismatches",
             "stage_split",
             "stage_split_pipeline", "stage_split_pipeline_v11",

@@ -48,6 +48,14 @@ class TrackerConfig:
     # gathers for every value, which give the values of both.
     reid_sample_impl: str = "auto"
 
+    @staticmethod
+    def from_conf_threshold(conf: float, **kw) -> "TrackerConfig":
+        """Tracker thresholds from the detector's confidence, as the demo
+        CLI derives them (reference: src/main.cpp:132-141, low = conf *
+        0.5)."""
+        return TrackerConfig(high_thresh=conf, low_thresh=conf * 0.5,
+                             new_track_thresh=conf, **kw)
+
     def __post_init__(self):
         if self.motion_model not in ("cv", "kalman136"):
             raise ValueError(f"motion_model must be 'cv' or 'kalman136', "

@@ -160,6 +160,31 @@ def _kl_threshold(counts: np.ndarray, width: float,
     return (best_i + 0.5) * width
 
 
+def _load_calibration_images(calib_dir: str, input_size: int,
+                             max_images: int = 64):
+    """The first `max_images` images of `calib_dir` (sorted by name; files
+    cv2 cannot read are skipped), each through the normalised
+    letterbox_image -> [N, S, S, 3] float32 RGB in 0..1, or None when the
+    directory does not exist or holds no image (the reference's
+    Int8EntropyCalibrator feed, yolo_pose_engine.cpp:78-142; the JAX
+    package's _load_calibration_images). Reading images needs cv2: without
+    it this raises, where the JAX package returns None."""
+    import cv2
+    from ..ops.preprocess import letterbox_image
+    if not os.path.isdir(calib_dir):
+        return None
+    imgs = []
+    for f in sorted(os.listdir(calib_dir))[:max_images]:
+        img = cv2.imread(os.path.join(calib_dir, f))
+        if img is None:
+            continue
+        imgs.append(letterbox_image(torch.from_numpy(img),
+                                    input_size).numpy())
+    if not imgs:
+        return None
+    return np.transpose(np.stack(imgs), (0, 2, 3, 1)).astype(np.float32)
+
+
 def calibrate_activations(qparams: dict, name: str, images: np.ndarray,
                           method: str = "percentile", device=None) -> dict:
     """Run the forward eagerly on the weight-quantised parameters
@@ -216,32 +241,31 @@ def calibrate_and_quantize(params: dict, name: str, calib_dir: str = "",
                            method: str = "percentile", device=None) -> dict:
     """The full int8 build, after the JAX package's: per-channel int8
     weights with the partial-quantisation policy, then activation scales
-    from, in order: an existing `cache_path`; images in `calib_dir` (not
-    ported: they need the normalised letterbox_image, ROADMAP Queue 1 item
-    4); `synthetic_fallback=True`: uniform noise frames from seed 0, the
-    JAX package's; else none (weight-only int8). Calibrated scales are
-    written to `cache_path` when given."""
+    from, in order: an existing `cache_path`; the images in `calib_dir`
+    (up to 64, _load_calibration_images); `synthetic_fallback=True`:
+    uniform noise frames from seed 0, the JAX package's; else none
+    (weight-only int8). Calibrated scales are written to `cache_path` when
+    given. device: where the calibration forward runs (None: the card)."""
     qparams = quantize_params(params)
     if cache_path and os.path.exists(cache_path):
         n = load_calibration_cache(qparams, cache_path)
         print(f"[quant] loaded {n} activation scales from cache "
               f"{cache_path}")
         return qparams
-    if calib_dir:
-        raise NotImplementedError(
-            "calibration images need letterbox_image and an image reader, "
-            "not ported yet (ROADMAP Queue 1 item 4); pass cache_path or "
-            "synthetic_fallback=True")
-    if not synthetic_fallback:
+    images = _load_calibration_images(calib_dir, input_size) \
+        if calib_dir else None
+    if images is None and synthetic_fallback:
+        rng = np.random.default_rng(0)
+        images = rng.uniform(0.0, 1.0, (n_synthetic, input_size,
+                                        input_size, 3)).astype(np.float32)
+        print("[quant] WARNING: calibrating on SYNTHETIC frames -- "
+              "activation scales are unvalidated; accuracy loss is "
+              "unquantified. Provide -c <calib_dir> for real scales.")
+    if images is None:
         print("[quant] no calibration source: weight-only int8 "
-              "(activations stay float; pass cache_path for the full "
-              "w8a8 path)")
+              "(activations stay float; pass -c or --calib-cache for the "
+              "full w8a8 path)")
         return qparams
-    rng = np.random.default_rng(0)
-    images = rng.uniform(0.0, 1.0, (n_synthetic, input_size, input_size,
-                                    3)).astype(np.float32)
-    print("[quant] WARNING: calibrating on SYNTHETIC frames -- activation "
-          "scales are unvalidated; accuracy loss is unquantified.")
     qparams = calibrate_activations(qparams, name, images, method=method,
                                     device=device)
     if cache_path:

@@ -3,7 +3,7 @@ Kernel 2 (auction) and Kernel 3 (the tracker over a chunk) are
 hand-written CUDA behind ops.nms, ops.assignment and ops.tracker_chunk
 (whose dispatcher shares the module's name, so it is not re-exported
 here)."""
-from .assignment import (auction_assign, auction_assign_cuda,
+from .assignment import (auction, auction_assign, auction_assign_cuda,
                          auction_iterations, filter_matches_by_threshold,
                          greedy_assign)
 from .decode import decode_topk
@@ -23,7 +23,7 @@ from .reid import (REID_DIM, blend_reid_cost, cosine_cost_matrix,
 from .tracker_chunk import tracker_chunk_cuda, tracker_chunk_plain
 
 __all__ = [
-    "auction_assign", "auction_assign_cuda", "auction_iterations",
+    "auction", "auction_assign", "auction_assign_cuda", "auction_iterations",
     "filter_matches_by_threshold", "greedy_assign", "decode_topk",
     "spatial_gate", "boxes_iou_matrix", "centers_iou_matrix",
     "masked_pose_bbox", "pose_area", "pose_centers", "Kalman136",

@@ -12,10 +12,11 @@ changes nothing, so both versions stop there; the assignment is the one
 the fixed round budget gives.
 
 auction_assign_cuda is Kernel 2 (csrc/auction.cu) on CUDA tensors;
-auction_assign is its plain version. The tracker picks one by device
-(tracker/step.py::_auction). greedy_assign and filter_matches_by_threshold
-are the reference's host-side matcher family (assignment.py:112-166 of the
-JAX package); no path of the pipeline calls them.
+auction_assign is its plain version; auction, the dispatcher the tracker
+and the benchmark CLI call, picks one by device. greedy_assign and
+filter_matches_by_threshold are the reference's host-side matcher family
+(assignment.py:112-166 of the JAX package); no path of the pipeline calls
+them.
 """
 from __future__ import annotations
 
@@ -143,6 +144,17 @@ def auction_assign_cuda(cost: torch.Tensor,
 
 
 auction_assign_cuda.launches = 0
+
+
+def auction(cost: torch.Tensor, active: torch.Tensor | None = None):
+    """Auction dispatch by device, as the JAX package's _auction dispatches
+    by backend: Kernel 2 for a CUDA tensor (it raises rather than fall
+    back), the plain version for a CPU tensor."""
+    if cost.is_cuda:
+        return auction_assign_cuda(cost, active)
+    if cost.device.type != "cpu":
+        raise ValueError(f"auction: unsupported device {cost.device}")
+    return auction_assign(cost, active)
 
 
 def filter_matches_by_threshold(cost: torch.Tensor, row_assign: torch.Tensor,

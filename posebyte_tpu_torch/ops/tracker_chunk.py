@@ -47,8 +47,6 @@ import torch
 from ..core import constants as C
 from ..core.config import TrackerConfig
 from ..core.structs import Detections, TrackerState
-from ..tracker.output import extract_outputs_device
-from ..tracker.step import tracker_step
 from . import cuda_lib
 from .assignment import _MAX_SMEM, auction_iterations
 from .kalman import CV_LOST_DECAY, CV_MEASUREMENT_NOISE, CV_PROCESS_NOISE, \
@@ -99,6 +97,10 @@ def _stack(objs):
 
 def _plain_one_stream(state: TrackerState, dets: Detections,
                       config: TrackerConfig, advance, det_embeddings):
+    # Imported here: tracker.step imports ops, whose package imports this
+    # module, so a module-level import of the tracker is circular.
+    from ..tracker.output import extract_outputs_device
+    from ..tracker.step import tracker_step
     outs = {k: [] for k in OUT_KEYS}
     for k in range(dets.scores.shape[0]):
         det = _pick(dets, k)

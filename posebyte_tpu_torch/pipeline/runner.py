@@ -45,41 +45,14 @@ from ..ops.nms import MAX_N as NMS_MAX_N, pose_nms
 from ..ops.preprocess import letterbox_flat_nhwc, letterbox_params
 from ..ops.reid import make_embed_fn
 from ..ops.tracker_chunk import tracker_chunk
-from ..tracker.output import TrackOutput, extract_outputs_device
+from ..tracker.output import (TrackOutput, extract_outputs_device,
+                             pack_outputs, unpack_outputs)
 from ..tracker.step import tracker_step
 
 # The activations' type per precision; int8 runs bf16 activations between
 # its w8a8 convolutions, as the JAX runner does.
 _DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16,
            "int8": torch.bfloat16}
-
-
-def pack_outputs(outs: dict) -> torch.Tensor:
-    """Track outputs with leading axes [..., D] -> one int32 tensor [...,
-    D, 59] on their device (floats by their bits): ids, scores, the poses'
-    51 values, the boxes' 4, emit, and num_active repeated over D. A step
-    copies it to the host in one transfer; unpack_outputs reads it."""
-    i32 = torch.int32
-    ids = outs["ids"].to(i32)
-    return torch.cat([
-        ids[..., None],
-        outs["scores"].float().view(i32)[..., None],
-        outs["poses"].float().flatten(-2).view(i32),
-        outs["boxes"].float().view(i32),
-        outs["emit"].to(i32)[..., None],
-        outs["num_active"].to(i32)[..., None, None].expand_as(
-            ids[..., None])], dim=-1)
-
-
-def unpack_outputs(packed: np.ndarray) -> dict:
-    """pack_outputs' host copy [..., D, 59] -> numpy views: ids, scores,
-    poses [..., D, 17, 3], boxes [..., D, 4], emit (bool), num_active [...]
-    (int32)."""
-    f32 = packed.view(np.float32)
-    return {"ids": packed[..., 0], "scores": f32[..., 1],
-            "poses": f32[..., 2:53].reshape(*packed.shape[:-1], 17, 3),
-            "boxes": f32[..., 53:57], "emit": packed[..., 57] != 0,
-            "num_active": packed[..., 0, 58]}
 
 
 def frame_tracks(ids, scores, poses, boxes, emit, frame_w: int,

@@ -12,11 +12,11 @@ gating velocities from it), 2 spatial gating, 3 high-confidence tier
 7 age unmatched, 8 new tracks by deterministic prefix-sum slot allocation
 (ids in detection order; kalman136 initiates their filters), 9 duplicate
 suppression by the dominance rule. Each of the three tiers runs one
-auction (`_auction`): Kernel 2 on a CUDA tensor, the plain version on a
-CPU tensor. With Re-ID the co-visible cosine cost of the tracks' and the
-detections' embeddings is blended into tiers 1 (stage 3) and 3 (stage 5),
-matched tracks' embeddings follow their detections by EMA (stage 6) and
-new tracks take their detection's (stage 8).
+auction (ops.assignment.auction): Kernel 2 on a CUDA tensor, the plain
+version on a CPU tensor. With Re-ID the co-visible cosine cost of the
+tracks' and the detections' embeddings is blended into tiers 1 (stage 3)
+and 3 (stage 5), matched tracks' embeddings follow their detections by EMA
+(stage 6) and new tracks take their detection's (stage 8).
 """
 from __future__ import annotations
 
@@ -26,7 +26,7 @@ from ..core import constants as C
 from ..core.config import TrackerConfig
 from ..core.structs import Detections, KalmanState136, TrackerState, \
     scatter_rows
-from ..ops.assignment import auction_assign, auction_assign_cuda
+from ..ops.assignment import auction as _auction
 from ..ops.gating import spatial_gate
 from ..ops.geometry import centers_iou_matrix, pose_centers
 from ..ops.kalman import Kalman136, cv_predict, cv_update
@@ -34,17 +34,6 @@ from ..ops.oks import oks_matrix, torso_oks_matrix
 from ..ops.reid import blend_reid_cost, cosine_cost_matrix, ema_update
 
 LOCK_COST = 1e9
-
-
-def _auction(cost: torch.Tensor, active: torch.Tensor):
-    """Auction dispatch by device, as the JAX package's _auction dispatches
-    by backend: Kernel 2 for a CUDA tensor (it raises rather than fall
-    back), the plain version for a CPU tensor."""
-    if cost.is_cuda:
-        return auction_assign_cuda(cost, active)
-    if cost.device.type != "cpu":
-        raise ValueError(f"auction: unsupported device {cost.device}")
-    return auction_assign(cost, active)
 
 
 def _tier_assign(cost, active, row_assign, col_assign):

@@ -37,11 +37,22 @@ lines, every number per frame:
               frames at the round budget
 Device numbers come only from the profiler's CUDA activity; where it
 records none they print as null ("not measured").
+
+Beside main, the JAX package's diagnostic helpers (its
+utils/profiling.py:29-214), which the command line calls:
+profile_tracker_stages (benchmark --stages) times each tracker stage as a
+slice of its own and profile_frame_phases (demo --timing) the per-frame
+path's preprocess / detect / track phases, through the functions the path
+itself runs (Kernel 2 through ops.assignment.auction, Kernel 1 through
+pose_nms), each slice by CUDA events and a synchronize on the card
+(utils.timing.loop_ms). The slices pay a synchronize each, which the path
+does not: read them as relative weights.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import os
 import time
@@ -51,6 +62,179 @@ import numpy as np
 
 STAGES = ("ingest", "letterbox", "model", "decode", "nms", "reid",
           "tracker", "outputs", "fetch")
+
+
+@dataclasses.dataclass
+class FrameTiming:
+    """The demo loop's phase totals (reference: main.cpp:192-221)."""
+    preprocess_ms: float = 0.0
+    detect_ms: float = 0.0
+    track_ms: float = 0.0
+    total_ms: float = 0.0
+    frames: int = 0
+
+    def report(self) -> str:
+        n = max(self.frames, 1)
+        fps = 1000.0 * n / self.total_ms if self.total_ms else 0.0
+        return (f"\n=== Timing breakdown ({self.frames} frames) ===\n"
+                f"  Preprocess: {self.preprocess_ms / n:7.2f} ms/frame\n"
+                f"  Detect:     {self.detect_ms / n:7.2f} ms/frame\n"
+                f"  Track:      {self.track_ms / n:7.2f} ms/frame\n"
+                f"  TOTAL:      {self.total_ms / n:7.2f} ms/frame "
+                f"({fps:.1f} FPS)")
+
+
+@dataclasses.dataclass
+class TrackerTiming:
+    """Per-stage tracker totals (reference: TrackerTiming,
+    gpu_tracker.h:29-41)."""
+    predict_us: float = 0.0
+    gate_us: float = 0.0
+    high_assoc_us: float = 0.0
+    low_assoc_us: float = 0.0
+    lost_assoc_us: float = 0.0
+    update_us: float = 0.0
+    age_us: float = 0.0
+    new_track_us: float = 0.0
+    dedup_us: float = 0.0
+    total_us: float = 0.0
+    frame_count: int = 0
+
+    def print_stats(self):
+        """printTimingStats (gpu_tracker.cu:1641-1658)."""
+        if self.frame_count == 0:
+            return
+        n = float(self.frame_count)
+        print(f"\n=== Tracker Timing Stats ({self.frame_count} frames) ===")
+        for label, v in [("Predict", self.predict_us),
+                         ("Spatial gate", self.gate_us),
+                         ("High assoc", self.high_assoc_us),
+                         ("Low assoc", self.low_assoc_us),
+                         ("Lost assoc", self.lost_assoc_us),
+                         ("Update", self.update_us),
+                         ("Age tracks", self.age_us),
+                         ("New tracks", self.new_track_us),
+                         ("Dedup", self.dedup_us)]:
+            print(f"  {label:13s} {v / n:8.2f} us/frame")
+        print("  " + "-" * 29)
+        print(f"  {'TOTAL':13s} {self.total_us / n:8.2f} us/frame "
+              f"({1e6 * n / max(self.total_us, 1e-9):.1f} FPS potential)")
+
+
+def profile_tracker_stages(state, det, config, iters: int = 20
+                           ) -> TrackerTiming:
+    """Per-stage tracker times by running each stage as a slice of its own
+    on the state's device, `iters` times (stage boundaries of
+    GPUTracker::update, SURVEY.md §3.2): predict, gate, the three auction
+    tiers (Kernel 2 on the card, through ops.assignment.auction), update
+    and the dedup matrix. The age and new-track stages stay 0, as in the
+    JAX package."""
+    import torch
+
+    from ..core import constants as C
+    from ..ops.assignment import auction
+    from ..ops.gating import spatial_gate
+    from ..ops.geometry import centers_iou_matrix, pose_centers
+    from ..ops.kalman import cv_predict, cv_update
+    from ..ops.oks import oks_matrix, torso_oks_matrix
+    from .timing import loop_ms
+
+    dev = state.poses.device
+    t = TrackerTiming()
+    with torch.inference_mode():
+        predicted, vel = cv_predict(state.poses, state.velocities,
+                                    state.active, state.states)
+        tc = pose_centers(predicted)
+        dc = pose_centers(det.poses)
+        gate = spatial_gate(tc, dc, vel, state.active, state.states,
+                            config.gate_threshold)
+        cost = torch.where(gate, 1.0 - oks_matrix(
+            predicted, det.poses, config.visibility_threshold), 1e9)
+        lost = state.active & (state.states == C.TRACK_STATE_LOST)
+        unmatched = torch.full((config.max_tracks,), -1, dtype=torch.int32,
+                               device=dev)
+        stages = {
+            "predict_us": lambda: cv_predict(
+                state.poses, state.velocities, state.active, state.states),
+            "gate_us": lambda: spatial_gate(
+                tc, dc, vel, state.active, state.states,
+                config.gate_threshold),
+            "high_assoc_us": lambda: auction(cost, state.active),
+            "low_assoc_us": lambda: auction(torch.where(
+                gate, 1.0 - torso_oks_matrix(predicted, det.poses), 1e9),
+                state.active),
+            "lost_assoc_us": lambda: auction(cost, lost),
+            "update_us": lambda: cv_update(state.poses, vel, det.poses,
+                                           unmatched, state.active),
+            "dedup_us": lambda: centers_iou_matrix(tc),
+        }
+        total = 0.0
+        for name, fn in stages.items():
+            us = loop_ms(fn, iters, dev) * 1e3 * iters
+            setattr(t, name, us)
+            total += us
+    t.total_us = total
+    t.frame_count = iters
+    return t
+
+
+def profile_frame_phases(pipe, frame_h: int, frame_w: int,
+                         iters: int = 10) -> FrameTiming:
+    """The demo's preprocess / detect / track split (reference:
+    main.cpp:298-303), each phase a slice of its own on the pipeline's
+    device, `iters` times, on a seeded random frame of this geometry:
+    the matmul letterbox; the model, decode and pose-NMS (Kernel 1 on the
+    card); tracker_step (Kernel 2 three times on the card). total_ms is
+    `iters` frames of the real per-frame step, process_frame, measured
+    apart, after which the pipeline's state and timing are put back as
+    they were (the JAX package leaves its tracks aged by these frames)."""
+    import torch
+
+    from ..core.structs import Detections, TrackerState
+    from ..ops.decode import decode_topk
+    from ..ops.nms import pose_nms
+    from ..ops.preprocess import letterbox_flat_nhwc
+    from ..tracker.step import tracker_step
+    from .timing import loop_ms
+
+    det_cfg, trk_cfg = pipe.config.detector, pipe.config.tracker
+    S, dev = det_cfg.input_size, pipe.device
+    rng = np.random.default_rng(0)
+    flat = torch.from_numpy(rng.integers(
+        0, 255, (frame_h * frame_w * 3,), dtype=np.uint8)).to(dev)
+
+    def pre():
+        return letterbox_flat_nhwc(flat, frame_w, frame_h, S,
+                                   out_dtype=pipe.dtype,
+                                   raw=det_cfg.raw_preproc)
+
+    def detect(img):
+        box, cls, kpt = pipe.detector.heads(pipe.params, img[None])
+        d = decode_topk(box, cls, kpt, det_cfg.conf_threshold,
+                        det_cfg.max_candidates, S,
+                        topk_impl=det_cfg.topk_impl)
+        d = pose_nms(d, det_cfg.iou_threshold, det_cfg.oks_threshold,
+                     det_cfg.max_detections, presorted=True)
+        return Detections(d.poses[0], d.boxes[0], d.scores[0], d.valid[0])
+
+    with torch.inference_mode():
+        img = pre()
+        det = detect(img)
+        state = TrackerState.init(trk_cfg.max_tracks, trk_cfg.max_detections,
+                                  dev)
+        t = FrameTiming(frames=iters)
+        t.preprocess_ms = loop_ms(pre, iters, dev) * iters
+        t.detect_ms = loop_ms(lambda: detect(img), iters, dev) * iters
+        t.track_ms = loop_ms(lambda: tracker_step(state, det, trk_cfg),
+                             iters, dev) * iters
+    frame = np.zeros((frame_h, frame_w, 3), np.uint8)
+    kept, timing = pipe.state, dict(pipe.timing)
+    try:
+        t.total_ms = loop_ms(lambda: pipe.process_frame(frame), iters,
+                             dev) * iters
+    finally:
+        pipe.state, pipe.timing = kept, timing
+    return t
 
 
 def _frames(n: int, width: int = 1280, height: int = 720, persons: int = 6,

@@ -1,17 +1,20 @@
 """Synthetic scenes and a numpy skeleton rasteriser, so that frames with
 people in them can be made without cv2.
 
-SyntheticScene is posebyte_tpu/utils/synthetic.py's scene (the same motion
-and the same poses for the same seed). render_frame follows its
-render_frame/draw_pose (utils/video.py:134-147): skeleton edges as 2-px
-lines, keypoints as filled discs of radius 3, per-person colours. It does
-not match cv2 pixel for pixel.
+SyntheticScene and CrowdedScene are posebyte_tpu/utils/synthetic.py's
+scenes (the same motion and the same poses for the same seed).
+render_frame follows its render_frame/draw_pose (utils/video.py:134-147):
+skeleton edges as 2-px lines, keypoints as filled discs of radius 3,
+per-person colours. It does not match cv2 pixel for pixel.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..core import constants as C
+from ..core.device import resolve_device
+from ..core.structs import Detections
 
 # Human-shaped keypoint offsets, unit scale (reference benchmark.cpp:19-66).
 POSE_OFFSETS = np.array([
@@ -103,6 +106,16 @@ def poses_to_arrays(poses: np.ndarray, capacity: int, score=0.9):
     ds[:P] = score
     dv[:P] = True
     return dp, db, ds, dv
+
+
+def poses_to_detections(poses: np.ndarray, capacity: int, score=0.9,
+                        device=None) -> Detections:
+    """Poses [P, 17, 3] -> padded Detections of `capacity` on `device`
+    (None: the card), the detector bypass of
+    posebyte_tpu/utils/synthetic.py::poses_to_detections."""
+    dev = resolve_device(device)
+    return Detections(*(torch.from_numpy(a).to(dev)
+                        for a in poses_to_arrays(poses, capacity, score)))
 
 
 def tracker_chunk_case(seed: int, frames: int, capacity: int,
@@ -253,11 +266,16 @@ def draw_pose(frame: np.ndarray, keypoints: np.ndarray, color,
 
 
 def render_frame(poses: np.ndarray, width: int, height: int,
-                 background: int = 40) -> np.ndarray:
-    """Rasterise poses [P, 17, 3] to a BGR uint8 frame."""
+                 background: int = 40, colors=None) -> np.ndarray:
+    """Rasterise poses [P, 17, 3] to a BGR uint8 frame. colors: optional
+    [P, 3] BGR colours, one per person; by default a fixed palette by
+    index."""
     frame = np.full((height, width, 3), background, np.uint8)
     for i, pose in enumerate(poses):
-        color = (60 + (60 * i) % 196, 200, 255 - (50 * i) % 200)
+        if colors is not None:
+            color = tuple(int(c) for c in colors[i])
+        else:
+            color = (60 + (60 * i) % 196, 200, 255 - (50 * i) % 200)
         draw_pose(frame, pose, color)
     return frame
 
@@ -273,3 +291,108 @@ def calibration_frames(n: int, size: int, n_persons: int = 6,
                        for _ in range(n)])
     return np.ascontiguousarray(frames[..., ::-1], np.float32) / \
         np.float32(255.0)
+
+
+class CrowdedScene:
+    """The hard tracking scene of posebyte_tpu/utils/synthetic.py (the
+    same poses and active masks for the same seed): crossing trajectories,
+    close interactions, staggered entry and exit, the regime of the
+    two-tier and lost-recovery machinery (reference:
+    gpu_tracker.cu:1276-1436), which SyntheticScene, whose figures never
+    overlap, does not reach.
+
+    Every person commutes between waypoints on OPPOSITE sides of the
+    frame, all paths routed through a shared central corridor, so
+    pairs continually cross at varying depths; when rendered
+    (render_frame draws in index order) a crossing is a real partial-
+    to-full occlusion of the earlier-drawn figure. With entry_exit,
+    each person is only active inside a per-identity frame window
+    (walks in from an edge / leaves mid-clip).
+
+    step() returns (poses [P,17,3] f32, active [P] bool): GT for the
+    ACTIVE people only; occluded-but-active people stay labeled (a
+    detector will miss them — that is the point of the benchmark).
+    """
+
+    def __init__(self, n_persons: int = 8, width: int = 1280,
+                 height: int = 720, seed: int = 0,
+                 scale_range=(80.0, 130.0), speed: float = 5.0,
+                 entry_exit: bool = True, clip_len: int = 96):
+        self.width, self.height = width, height
+        rng = np.random.default_rng(seed)
+        self.rng = rng
+        P = n_persons
+        self.scales = rng.uniform(*scale_range, size=P).astype(np.float32)
+        m = float(self.scales.max()) * 0.6 + 8.0
+        self.margin = m
+
+        # waypoint pairs on opposite sides, routed through the center
+        side = rng.integers(0, 2, P)      # 0: left<->right, 1: top<->bottom
+        a = np.empty((P, 2), np.float32)
+        b = np.empty((P, 2), np.float32)
+        for i in range(P):
+            if side[i] == 0:
+                a[i] = (m, rng.uniform(m, height - m))
+                b[i] = (width - m, rng.uniform(m, height - m))
+            else:
+                a[i] = (rng.uniform(m, width - m), m)
+                b[i] = (rng.uniform(m, width - m), height - m)
+        # center routing: waypoint sequence a -> center' -> b -> center'' -> a
+        self.waypoints = [a, None, b, None]
+        self.center_jitter = rng.uniform(-60, 60, size=(2, P, 2)) \
+            .astype(np.float32)
+        cx, cy = width / 2.0, height / 2.0
+        self.waypoints[1] = (np.asarray([[cx, cy]], np.float32)
+                             + self.center_jitter[0])
+        self.waypoints[3] = (np.asarray([[cx, cy]], np.float32)
+                             + self.center_jitter[1])
+        self.wp_idx = rng.integers(0, 4, P)
+        self.centers = np.stack([self.waypoints[self.wp_idx[i]][i]
+                                 for i in range(P)]).astype(np.float32)
+        self.speed = np.float32(speed) * rng.uniform(0.7, 1.3, P) \
+            .astype(np.float32)
+
+        # entry/exit windows (staggered thirds of the clip)
+        if entry_exit:
+            start = rng.integers(0, clip_len // 3, P)
+            end = clip_len - rng.integers(0, clip_len // 3, P)
+            # at least a third of the population spans the whole clip
+            always = rng.permutation(P)[:max(1, P // 3)]
+            start[always] = 0
+            end[always] = clip_len
+            self.window = np.stack([start, end], -1)
+        else:
+            self.window = np.stack([np.zeros(P, np.int64),
+                                    np.full(P, 10 ** 9)], -1)
+        self.t = -1
+
+    @property
+    def n_persons(self) -> int:
+        return len(self.centers)
+
+    def step(self):
+        """Advance one frame -> (poses [P,17,3], active [P] bool)."""
+        self.t += 1
+        P = self.n_persons
+        for i in range(P):
+            tgt = self.waypoints[self.wp_idx[i]][i]
+            d = tgt - self.centers[i]
+            dist = float(np.hypot(d[0], d[1]))
+            if dist < self.speed[i] * 2.0:
+                self.wp_idx[i] = (self.wp_idx[i] + 1) % 4
+                tgt = self.waypoints[self.wp_idx[i]][i]
+                d = tgt - self.centers[i]
+                dist = float(np.hypot(d[0], d[1]))
+            if dist > 1e-6:
+                self.centers[i] += d / dist * self.speed[i]
+        poses = np.ones((P, 17, 3), np.float32)
+        poses[:, :, :2] = (self.centers[:, None, :]
+                           + POSE_OFFSETS[None] * self.scales[:, None, None])
+        active = ((self.t >= self.window[:, 0])
+                  & (self.t < self.window[:, 1]))
+        return poses, active
+
+    def frames(self, n: int):
+        """Yield n (poses, active) GT tuples."""
+        for _ in range(n):
+            yield self.step()

@@ -14,7 +14,9 @@ none of the host's). The sleep is checked to have covered the enqueue (the
 start event has not completed when the last call is queued) and doubled
 until it does. `fn` must not synchronise with the host.
 
-Both need a CUDA card; both warm up with one call first.
+Both need a CUDA card; both warm up with one call first. loop_ms is
+call_ms on a CUDA device and the host's clock around the calls on the CPU
+(the command line's component times, on either device).
 """
 from __future__ import annotations
 
@@ -66,3 +68,16 @@ def device_ms(fn, reps: int) -> float:
             return start.elapsed_time(end) / reps
         cycles *= 2
     raise RuntimeError("device_ms: the host's enqueue outran the sleep")
+
+
+def loop_ms(fn, reps: int, device) -> float:
+    """Mean ms per call of `reps` calls issued back to back after one
+    warm-up call: call_ms on a CUDA device (events, then a synchronize),
+    the host's clock on the CPU."""
+    if torch.device(device).type == "cuda":
+        return call_ms(fn, reps)
+    fn()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t) / reps * 1e3
