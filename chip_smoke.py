@@ -189,6 +189,42 @@ Phases, each printing one JSON line with its elapsed seconds:
                frames with the native drawing: frames/s, launches, the
                drawn bytes equal to the CPU's drawing of the same tracks,
                and a fixed drawing equal to DRAW_DIGEST
+  train        yolov8n-pose from init_params in float32 on a fixed batch of
+               synthetic letterboxed frames (the trainer's make_split), 30
+               steps of the trainer's optimizer chain (clip_by_global_norm
+               5, adamw with the warmup-cosine schedule) through
+               models.train.make_scan_train, at 640 with batch 16 and at
+               the trainer's defaults, 256 with batch 32: the loss finite
+               and its last below 0.7 x its first; ms per step, images/s,
+               peak memory, device busy share of one profiled step, the
+               step's bound (3 x the forward's conv operations at 67
+               TFLOP/s); one SGD step (lr 1e-2) on the card and on the CPU
+               from the same params and batch: loss within 1e-4, params
+               within rtol 5e-4, atol 5e-6
+  train_resume scripts.train_synthetic.main --resume the v8n-256
+               checkpoint (10 steps at lr 1e-5): its save check (the file
+               read back on the CPU, the loss equal to the card's) and its
+               eval_detection on its own validation split (256 frames, seed
+               + 777000, no noise), Kernel 1 once per batch of 32; then the
+               saved file's detections of that split on the card and on
+               the CPU: valid masks equal, keypoints within 1e-2 px, mAP
+               within 0.03 of the checkpoint's metrics file
+  train_reid   20 steps of scripts.train_reid's step (info_nce_loss, Adam)
+               from init_reid_head on the card: the loss falls;
+               eval_separation of the trained head on the script's
+               validation split: top1_acc within 0.03 of its metrics file
+  parallel     parallel.MultiStreamPipeline (4 calls) and
+               MultiStreamChunkPipeline (one chunk of 8) on make_mesh(1), 8
+               streams of 1920x1080, yolov8n-pose 640 fp32: per call
+               Kernel 1 once, Kernel 3 once, Kernel 2 never; ids equal to
+               StreamServer's and ChunkedStreamServer's on the same frames
+               with every stream advancing, and to the pipelines' run on
+               the CPU (keypoints within 1e-2 px); frames/s
+  dp           parallel.make_data_mesh(1): an NCCL group of one (a
+               FileStore under build/dp); make_dp_train_step equal to
+               make_train_step bit for bit (SGD, cuDNN and the index
+               backward in their deterministic modes); make_dp_scan_train
+               for 10 steps lowers the loss
 Each path's launch counts are set to 0 just before it runs and read just
 after. Then a line {"kernels": [...]} with each kernel's launches (summed
 over the paths' runs, yolo11n-pose's included), error, times and bound
@@ -3101,6 +3137,440 @@ def phase_cli(t0, rows, assets, pt_path, pt_params):
         raise SystemExit("cli: a command-line check failed")
 
 
+# Training and the parallel package (the phases train, train_resume,
+# train_reid, parallel and dp).
+TRAIN_STEPS = 30
+# (input, batch): yolov8n-pose at full width and 640, then the trainer's
+# defaults
+TRAIN_RUNS = ((640, 16), (256, 32))
+TRAIN_WARM = 5         # steps before the timed ones
+TRAIN_FALL = 0.7       # last loss below this x the first (tests/test_train.py)
+SGD_LR = 1e-2          # the card/CPU step (tests/test_parallel_train.py)
+STEP_RTOL_LOSS, STEP_RTOL, STEP_ATOL = 1e-4, 5e-4, 5e-6
+RESUME = "yolov8n-pose-synthetic256"
+RESUME_MAP_TOL = 0.03  # the port's renderer is not cv2's
+REID_STEPS, REID_PAIRS, REID_BATCH = 20, 64, 16
+REID_TOL = 0.03
+PAR_STEPS = 4
+DP_STEPS, DP_SIZE, DP_BATCH, DP_FRAMES = 10, 256, 16, 64
+BUILD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+DEV = "cuda"        # the card (the new phases' device, by name)
+
+
+def train_data(size, batch, seed=SEED):
+    """`batch` synthetic letterboxed frames at `size` (the trainer's
+    make_split, noise on): the host arrays and their tensors on the card."""
+    import torch
+    from posebyte_tpu_torch.scripts.train_synthetic import make_split
+    host = make_split(batch, size, seed, noise=True)
+    return host, {k: torch.from_numpy(v).to(DEV) for k, v in host.items()}
+
+
+def conv_flops(params, imgs, family):
+    """Float32 operations of the forward's convolutions on imgs, from each
+    F.conv2d call's shapes: 2 per multiply-add."""
+    import torch
+    import torch.nn.functional as F
+    from posebyte_tpu_torch.models.yolo_pose import forward_heads
+    with recorded(F, "conv2d") as calls, torch.no_grad():
+        forward_heads(params, imgs, family)
+    total = 0
+    for (x, w, *_), kw in calls:
+        s, p = kw.get("stride", 1), kw.get("padding", 0)
+        ho = (x.shape[2] + 2 * p - w.shape[2]) // s + 1
+        wo = (x.shape[3] + 2 * p - w.shape[3]) // s + 1
+        total += 2 * x.shape[0] * ho * wo * w.numel()
+    return total
+
+
+def profiled_ms(fn):
+    """One call of fn under torch.profiler: (device busy ms, wall ms, the
+    5 device items with the most ms)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    per_item = collections.defaultdict(float)
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            per_item[e.name[:60]] += e.device_time_total / 1e3
+    busy = sum(per_item.values())
+    top = sorted(per_item.items(), key=lambda kv: -kv[1])[:5]
+    return (busy if busy > 0 else None), wall, top
+
+
+def step_mismatch(got, want):
+    """Worst |got - want| / (STEP_ATOL + STEP_RTOL |want|) over every
+    parameter (above 1 fails), with its key."""
+    worst, at = 0.0, None
+    for k in want:
+        a = got[k].detach().cpu().double()
+        b = want[k].detach().cpu().double()
+        r = float(((a - b).abs() / (STEP_ATOL + STEP_RTOL * b.abs())).max())
+        if r > worst:
+            worst, at = r, k
+    return worst, at
+
+
+def phase_train(t0):
+    """yolov8n-pose from init_params in float32 on a fixed batch: TRAIN_STEPS
+    steps of the trainer's optimizer chain (make_scan_train) at each of
+    TRAIN_RUNS, the loss finite and falling below TRAIN_FALL x its first;
+    ms per step, images/s, peak memory, the busy share of one profiled step
+    and its bound (3 x the forward's conv operations at F32_OPS_S); one SGD
+    step on the card and on the CPU from the same params and batch."""
+    import numpy as np
+    import torch
+    from posebyte_tpu_torch.core import set_numeric_settings
+    from posebyte_tpu_torch.models import optim
+    from posebyte_tpu_torch.models import train as T
+    from posebyte_tpu_torch.models.yolo_pose import init_params
+    from posebyte_tpu_torch.scripts.train_synthetic import make_optimizer
+    set_numeric_settings()
+    runs = []
+    for size, batch in TRAIN_RUNS:
+        host, data = train_data(size, batch)
+        flat = init_params(SEED, V8)
+        params = T.trainable_params(flat, DEV)
+        opt = make_optimizer(1e-3, TRAIN_STEPS)
+        st = opt.init(params)
+        run = T.make_scan_train(V8, size, opt, batch)
+        idx = torch.arange(batch, device=DEV).repeat(TRAIN_STEPS, 1)
+        torch.cuda.reset_peak_memory_stats()
+        params, st, warm = run(params, st, data, idx[:TRAIN_WARM])
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, st, rest = run(params, st, data, idx[TRAIN_WARM:])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3 / (TRAIN_STEPS - TRAIN_WARM)
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        losses = torch.cat([warm, rest]).cpu().numpy()
+        step = T.make_train_step(V8, size, opt)
+        busy, wall, top = profiled_ms(lambda: step(params, st, data))
+        fwd = conv_flops(params, T.to_unit(data["img"]), "v8")
+        bound_ms = 3 * fwd / F32_OPS_S * 1e3
+        # one SGD step on the card and on the CPU, the same params and batch
+        sgd = optim.sgd(SGD_LR)
+        sgd_step = T.make_train_step(V8, size, sgd)
+        cards, cpus = (T.trainable_params(flat, d) for d in (DEV, "cpu"))
+        p_card, _, l_card, _ = sgd_step(cards, sgd.init(cards), data)
+        tc = time.perf_counter()
+        p_cpu, _, l_cpu, _ = sgd_step(cpus, sgd.init(cpus), {
+            k: torch.from_numpy(v) for k, v in host.items()})
+        cpu_s = time.perf_counter() - tc
+        worst, at = step_mismatch(p_card, p_cpu)
+        loss_rel = abs(float(l_card) - float(l_cpu)) / abs(float(l_cpu))
+        runs.append({
+            "input": size, "batch": batch, "first_loss": float(losses[0]),
+            "last_loss": float(losses[-1]), "losses": losses.tolist(),
+            "ms_per_step": ms, "images_per_s": batch / ms * 1e3,
+            "peak_mem_mb": peak, "profiled_step_ms": wall,
+            "device_busy_ms": busy,
+            "busy_share": None if busy is None else busy / wall,
+            "top_device_ms": top, "forward_conv_gflop": fwd / 1e9,
+            "bound_ms": bound_ms, "bound_by": "operations",
+            "sgd_loss_card": float(l_card), "sgd_loss_cpu": float(l_cpu),
+            "sgd_loss_rel": loss_rel, "sgd_param_worst": worst,
+            "sgd_param_worst_key": at, "cpu_step_s": cpu_s})
+        bad = (not np.isfinite(losses).all()
+               or not losses[-1] < TRAIN_FALL * losses[0]
+               or loss_rel > STEP_RTOL_LOSS or worst > 1.0)
+        if bad:
+            emit("train", t0, model=V8, runs=runs)
+            raise SystemExit(f"train at {size}, batch {batch}: the loss "
+                             f"did not fall or the card disagrees with "
+                             f"the CPU")
+        del params, st, data
+        torch.cuda.empty_cache()
+    emit("train", t0, model=V8, dtype="float32", steps=TRAIN_STEPS,
+         optimizer="clip_by_global_norm(5) + adamw(warmup cosine, 1e-3)",
+         sgd_lr=SGD_LR, runs=runs)
+
+
+def phase_train_resume(t0, rows, assets):
+    """train_synthetic.main --resume the v8n-256 checkpoint for 10 steps at
+    lr 1e-5 on the card: its save check (the file read back on the CPU,
+    the loss equal) and eval_detection on the script's own validation split
+    (256 frames, seed + 777000, no noise) with Kernel 1, a launch per batch
+    of 32; then the saved file's detections of that split on the card and
+    on the CPU, equal, and the mAP within RESUME_MAP_TOL of the metrics
+    file's."""
+    import io
+    import numpy as np
+    from posebyte_tpu_torch.models import load_params
+    from posebyte_tpu_torch.scripts import train_synthetic as TS
+    asset = os.path.join(assets, RESUME + ".safetensors")
+    with open(os.path.join(assets, RESUME + ".metrics.json")) as f:
+        want = json.load(f)["val_detection"]["mAP"]
+    out = os.path.join(BUILD, "train_resume", "resumed.safetensors")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    argv = ["--resume", asset, "--size", "256", "--steps", "10",
+            "--segment", "10", "--lr", "1e-5", "--n-train", "256",
+            "--out", out, "--device", DEV]
+    kernels = _kernel_counts()
+    log = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        rc, main_launches = counted_run(rows, kernels,
+                                        lambda: TS.main(argv))
+    main_s = time.perf_counter() - t
+    with open(out.replace(".safetensors", ".metrics.json")) as f:
+        card_map = json.load(f)["val_detection"]
+    verify = [ln for ln in log.getvalue().splitlines()
+              if ln.startswith("[save-verify]")]
+    params, _ = load_params(out)
+    val = TS.make_split(256, 256, 777_000, noise=False)
+    card, launches = counted_run(rows, kernels, lambda: TS.detect_batches(
+        params, val, V8, 256, device=DEV))
+    cpu = TS.detect_batches(params, val, V8, 256, device="cpu")
+    valid_equal = all(np.array_equal(a.valid, b.valid)
+                      for a, b in zip(card, cpu))
+    kp = max(float(np.abs(a.poses[a.valid] - b.poses[b.valid]).max(
+        initial=0.0)) for a, b in zip(card, cpu))
+    score = max(float(np.abs(a.scores - b.scores).max())
+                for a, b in zip(card, cpu))
+    cpu_map = TS.detection_map(cpu, val)
+    again = TS.detection_map(card, val)
+    batches = 256 // 32
+    emit("train_resume", t0, checkpoint=os.path.basename(asset), rc=rc,
+         main_s=main_s, save_verify=verify, val_frames=256,
+         map_card=card_map, map_card_again=again, map_cpu=cpu_map,
+         map_want=want, detections_valid_equal=valid_equal,
+         kp_err_px=kp, score_err=score, launches_main=main_launches,
+         launches_detect=launches)
+    if (rc != 0 or not verify or not valid_equal or kp > 1e-2
+            or score > 1e-4
+            or abs(card_map["mAP"] - want) > RESUME_MAP_TOL
+            or abs(again["mAP"] - cpu_map["mAP"]) > 1e-9
+            or main_launches != {"nms_keep": batches, "auction": 0,
+                                 "tracker_chunk": 0}
+            or launches["nms_keep"] != batches):
+        raise SystemExit("train_resume: the resumed checkpoint's detections "
+                         "or mAP disagree")
+
+
+def phase_train_reid(t0, assets):
+    """REID_STEPS steps of train_reid's step (info_nce_loss, Adam 2e-3) on
+    the card from init_reid_head: the loss falls; eval_separation of the
+    trained head on the script's validation split (128 pairs, seed +
+    999000) on the card: top1_acc within REID_TOL of its metrics file's."""
+    import numpy as np
+    import torch
+    from posebyte_tpu_torch.models import init_reid_head, load_reid_head
+    from posebyte_tpu_torch.models import optim
+    from posebyte_tpu_torch.scripts import train_reid as TR
+    pairs = TR.make_pairs(REID_PAIRS, 256, SEED)
+    data = {k: torch.from_numpy(v).to(DEV) for k, v in pairs.items()}
+    params = {k: v.to(DEV) for k, v in init_reid_head(SEED).items()}
+    opt = optim.adam(2e-3)
+    st = opt.init(params)
+    step = TR.make_step(data, REID_PAIRS, REID_BATCH, opt)
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    losses = []
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(REID_STEPS):
+        params, st, loss = step(params, st, gen)
+        losses.append(loss)
+    losses = torch.stack(losses).cpu().numpy()
+    ms = (time.perf_counter() - t) * 1e3 / REID_STEPS
+    with open(os.path.join(assets, "reid-head-synthetic.metrics.json")) as f:
+        want = json.load(f)["val"]
+    val = TR.make_pairs(128, 256, 999_000)
+    got = TR.eval_separation(load_reid_head(
+        os.path.join(assets, HEAD_ASSET)), val, DEV)
+    falls = bool(losses[-5:].mean() < losses[:5].mean())
+    emit("train_reid", t0, steps=REID_STEPS, batch=REID_BATCH,
+         losses=losses.tolist(), ms_per_step=ms, loss_falls=falls,
+         separation=got, separation_want=want)
+    if (not np.isfinite(losses).all() or not falls
+            or abs(got["top1_acc"] - want["top1_acc"]) > REID_TOL):
+        raise SystemExit("train_reid: the loss did not fall or the head's "
+                         "separation disagrees with its metrics file")
+
+
+def phase_parallel(t0, rows, params):
+    """MultiStreamPipeline (PAR_STEPS steps) and MultiStreamChunkPipeline
+    (one chunk of SERVE_CHUNK) on make_mesh(1), SERVE_STREAMS streams of
+    1920x1080, yolov8n-pose 640 in fp32: per call Kernel 1 once, Kernel 3
+    once, Kernel 2 never; ids equal to StreamServer's and
+    ChunkedStreamServer's on the same frames with every stream advancing,
+    and to the pipelines' run on the CPU (keypoints within 1e-2 px)."""
+    import numpy as np
+    import torch
+    from posebyte_tpu_torch.core import PipelineConfig
+    from posebyte_tpu_torch.parallel import (MultiStreamChunkPipeline,
+                                             MultiStreamPipeline, make_mesh)
+    from posebyte_tpu_torch.pipeline import ChunkedStreamServer, StreamServer
+    cfg = PipelineConfig(precision="fp32")
+    f32 = torch.float32
+    streams = serving_streams()
+    frames = np.stack([np.stack(s[0][:SERVE_CHUNK]) for s in streams])
+    kernels = _kernel_counts()
+    one = {"nms_keep": 1, "auction": 0, "tracker_chunk": 1}
+
+    def served(srv, k):
+        for sid in range(SERVE_STREAMS):
+            srv.open_stream()
+            for f in frames[sid, :k]:
+                srv.submit(sid, f)
+        while srv.step():
+            pass
+        return [srv.poll(sid) for sid in range(SERVE_STREAMS)]
+
+    def frames_per_s(ms, kind):
+        """Frames over the timed calls (a warm-up call ran before them)."""
+        per_call = SERVE_STREAMS * (1 if kind == "frame" else SERVE_CHUNK)
+        return per_call * len(ms) / (sum(ms) / 1e3)
+
+    res = {}
+    for kind in ("frame", "chunk"):
+        mesh = make_mesh(1)
+        if kind == "frame":
+            pipe = MultiStreamPipeline(SERVE_STREAMS, cfg, mesh, params,
+                                       dtype=f32)
+            cpu = MultiStreamPipeline(SERVE_STREAMS, cfg,
+                                      make_mesh(1, device="cpu"), params,
+                                      dtype=f32)
+            warm = MultiStreamPipeline(SERVE_STREAMS, cfg, mesh, params,
+                                       dtype=f32).process_frames
+            calls = [lambda k=k: pipe.process_frames(frames[:, k])
+                     for k in range(PAR_STEPS)]
+            cpu_calls = [lambda k=k: cpu.process_frames(frames[:, k])
+                         for k in range(PAR_STEPS)]
+            srv = StreamServer(SERVE_STREAMS, (SERVE_H, SERVE_W), cfg, params,
+                               device=DEV, dtype=f32)
+            k_frames = PAR_STEPS
+        else:
+            pipe = MultiStreamChunkPipeline(SERVE_STREAMS, SERVE_CHUNK, cfg,
+                                            mesh, params, dtype=f32)
+            cpu = MultiStreamChunkPipeline(SERVE_STREAMS, SERVE_CHUNK, cfg,
+                                           make_mesh(1, device="cpu"),
+                                           params, dtype=f32)
+            warm = MultiStreamChunkPipeline(SERVE_STREAMS, SERVE_CHUNK, cfg,
+                                            mesh, params,
+                                            dtype=f32).process_chunks
+            calls = [lambda: pipe.process_chunks(frames)]
+            cpu_calls = [lambda: cpu.process_chunks(frames)]
+            srv = ChunkedStreamServer(SERVE_STREAMS, (SERVE_H, SERVE_W),
+                                      SERVE_CHUNK, cfg, params, device=DEV,
+                                      dtype=f32)
+            k_frames = SERVE_CHUNK
+        # One untimed call of a second pipeline on the same shapes first,
+        # so that no timed call pays the first call's set-up; its launches
+        # are not counted.
+        warm(frames[:, 0] if kind == "frame" else frames)
+        del warm
+        torch.cuda.synchronize()
+        outs, counts, ms = [], [], []
+        for call in calls:
+            t = time.perf_counter()
+            out, n = counted_run(rows, kernels, call)
+            ms.append((time.perf_counter() - t) * 1e3)
+            outs.append(out)
+            counts.append(n)
+        host = [c() for c in cpu_calls]
+
+        def joined(outs, key):
+            return np.concatenate([o[key][:, None] if kind == "frame"
+                                   else o[key] for o in outs], axis=1)
+
+        ids, poses, emit_ = (joined(outs, k) for k in ("ids", "poses",
+                                                       "emit"))
+        c_ids, c_poses = joined(host, "ids"), joined(host, "poses")
+        polled = served(srv, k_frames)
+        srv_ids = np.stack([np.stack([o["ids"] for o in s]) for s in polled])
+        kp = float(np.abs(np.where(emit_[..., None, None], poses - c_poses,
+                                   0)).max())
+        res[kind] = {
+            "steps": len(calls), "frames_per_call": SERVE_STREAMS * (
+                1 if kind == "frame" else SERVE_CHUNK),
+            "ms_per_call": ms, "frames_per_s": frames_per_s(ms, kind),
+            "launches_per_call": counts,
+            "ids_equal_server": bool(np.array_equal(ids, srv_ids)),
+            "ids_equal_cpu": bool(np.array_equal(ids, c_ids)),
+            "kp_err_px_cpu": kp, "tracks": int(emit_.sum())}
+        if (not res[kind]["ids_equal_server"]
+                or not res[kind]["ids_equal_cpu"] or kp > 1e-2
+                or any(c != one for c in counts) or not emit_.any()):
+            emit("parallel", t0, failed=kind, result=res[kind])
+            raise SystemExit(f"parallel ({kind}): ids or launches wrong")
+        del pipe, cpu, srv
+    emit("parallel", t0, mesh=1, streams=SERVE_STREAMS,
+         frame_size=[SERVE_W, SERVE_H], precision="fp32",
+         per_frame=res["frame"], per_chunk=res["chunk"])
+
+
+def phase_dp(t0):
+    """make_data_mesh(1): an NCCL group of one on the card (a FileStore
+    under build/dp). make_dp_train_step equal to make_train_step bit for
+    bit (SGD, the same params and batch; cuDNN and the index backward in
+    their deterministic modes for both); make_dp_scan_train for DP_STEPS
+    steps of the trainer's chain on its shard lowers the loss."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from posebyte_tpu_torch.models import optim
+    from posebyte_tpu_torch.models import train as T
+    from posebyte_tpu_torch.models.yolo_pose import init_params
+    from posebyte_tpu_torch.parallel import (make_data_mesh,
+                                             make_dp_scan_train,
+                                             make_dp_train_step,
+                                             shard_dataset)
+    from posebyte_tpu_torch.scripts.train_synthetic import (make_optimizer,
+                                                            make_split)
+    mesh = make_data_mesh(1, device=DEV, store_path=os.path.join(
+        BUILD, "dp", f"smoke{os.getpid()}.store"))
+    backend = dist.get_backend()
+    host, data = train_data(DP_SIZE, DP_BATCH)
+    flat = init_params(SEED, V8)
+    sgd = optim.sgd(SGD_LR)
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        res = []
+        for step in (T.make_train_step(V8, DP_SIZE, sgd),
+                     T.make_train_step(V8, DP_SIZE, sgd),
+                     make_dp_train_step(V8, DP_SIZE, sgd, mesh)):
+            p = T.trainable_params(flat, DEV)
+            res.append(step(p, sgd.init(p), data))
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = det
+
+    def equal(a, b):
+        return bool(torch.equal(a[2], b[2]) and all(
+            torch.equal(a[0][k], b[0][k]) for k in a[0]))
+
+    repeat_equal, dp_equal = equal(res[0], res[1]), equal(res[0], res[2])
+    shard = shard_dataset(make_split(DP_FRAMES, DP_SIZE, SEED + 1,
+                                     noise=True), mesh)
+    opt = make_optimizer(1e-3, DP_STEPS)
+    params = T.trainable_params(flat, DEV)
+    run = make_dp_scan_train(V8, DP_SIZE, opt, DP_BATCH, mesh)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    params, _, losses = run(params, opt.init(params), shard, DP_STEPS,
+                            seed=SEED)
+    losses = losses.cpu().numpy()
+    ms = (time.perf_counter() - t) * 1e3 / DP_STEPS
+    falls = bool(losses[-3:].mean() < losses[:3].mean())
+    dist.destroy_process_group()
+    emit("dp", t0, backend=backend, world_size=mesh.world_size,
+         repeat_equal=repeat_equal, dp_step_equal=dp_equal,
+         loss=float(res[2][2]), scan_losses=losses.tolist(),
+         scan_ms_per_step=ms, scan_loss_falls=falls)
+    if not dp_equal or not np.isfinite(losses).all() or not falls:
+        raise SystemExit("dp: the DP step differs from make_train_step or "
+                         "the DP loop did not lower the loss")
+
+
 def kernel_label(mangled):
     """A kernel's mangled name -> nms_keep<dominance>, nms_keep<greedy,
     register words a lane>, auction, tracker_chunk<cv>,
@@ -3206,6 +3676,11 @@ def main():
     phase_accuracy(t0, rows, assets)
     phase_hard_clip(t0, rows, assets)
     phase_cli(t0, rows, assets, pt_path, pt_params)
+    phase_train(t0)
+    phase_train_resume(t0, rows, assets)
+    phase_train_reid(t0, assets)
+    phase_parallel(t0, rows, params)
+    phase_dp(t0)
 
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",

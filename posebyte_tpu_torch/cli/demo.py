@@ -21,7 +21,6 @@ import time
 import numpy as np
 
 # Where each refusal's missing piece is queued (ROADMAP.md, Queue 1).
-ROADMAP_TRAINING = "ROADMAP Queue 1, 'Training' (init_params)"
 ROADMAP_DECODE = "ROADMAP Queue 1, 'Decode variants'"
 ROADMAP_ENGINE = "ROADMAP Queue 1, 'Engine and legacy NMS'"
 
@@ -105,16 +104,15 @@ def refuse_topk(impl: str):
 
 
 def load_model_params(engine: str):
-    """Resolve the -e argument: .safetensors | Ultralytics .pt ->
-    (params, model name). A bare model name, which the JAX package
-    initialises with random weights, is refused: the port has no
-    init_params yet."""
-    from ..models import MODEL_CONFIGS
+    """Resolve the -e argument: .safetensors | Ultralytics .pt | a model
+    name -> (params, model name). A bare model name gets random weights
+    (models.init_params, seed 0), for smoke runs, as in the JAX package."""
+    from ..models import MODEL_CONFIGS, init_params
     from ..models.weights import load_params, load_pretrained
     if engine in MODEL_CONFIGS:
-        raise SystemExit(f"{engine}: random-weight models need init_params, "
-                         f"which the port lacks ({ROADMAP_TRAINING}); pass "
-                         "a .safetensors or .pt checkpoint")
+        print(f"[posebyte] WARNING: random-initialized {engine} (no "
+              f"checkpoint given)", file=sys.stderr)
+        return init_params(0, engine), engine
     if engine.endswith(".safetensors"):
         return load_params(engine)
     if engine.endswith((".pt", ".pth")):

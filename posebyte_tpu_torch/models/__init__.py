@@ -1,14 +1,17 @@
-"""The YOLO-pose families (v8 and v11), their checkpoints (the JAX
-package's safetensors and Ultralytics .pt files) and the learned Re-ID
-head."""
-from .reid_head import apply_reid_head, load_reid_head, reid_head_from_jax
+"""The YOLO-pose families (v8 and v11), their random initialisation,
+their checkpoints (the JAX package's safetensors and Ultralytics .pt
+files), the learned Re-ID head and training (models.train)."""
+from .reid_head import (apply_reid_head, init_reid_head, load_reid_head,
+                        reid_head_from_jax, save_reid_head)
 from .weights import (convert_state_dict, fold_stem_preprocess,
                       load_params, load_pretrained,
                       load_ultralytics_checkpoint, params_from_jax,
                       read_safetensors, save_params)
-from .yolo_pose import MODEL_CONFIGS, ModelConfig, forward_heads, make_anchors
+from .yolo_pose import (MODEL_CONFIGS, ModelConfig, forward_heads,
+                        init_params, make_anchors)
 
 __all__ = ["MODEL_CONFIGS", "ModelConfig", "forward_heads", "make_anchors",
+           "init_params", "init_reid_head", "save_reid_head",
            "load_params", "params_from_jax", "read_safetensors",
            "save_params", "load_pretrained", "load_ultralytics_checkpoint",
            "convert_state_dict",

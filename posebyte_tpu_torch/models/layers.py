@@ -3,7 +3,9 @@ parameter dict.
 
 Counterparts of posebyte_tpu/models/layers.py (conv2d, conv_block,
 dwconv_block, bottleneck, c2f, c3, c3k2, sppf, the C2PSA attention stage,
-upsample2x, the calibration recorder). Activations
+upsample2x, the calibration recorder) and their initialisers (conv_init,
+dwconv_init, c2f_init, c3_init, c3k2_init, sppf_init, c2psa_init).
+Activations
 are NCHW tensors kept in channels_last memory, so cuDNN runs its NHWC
 kernels; weights are OIHW. BatchNorm is already fused into every conv.
 Padding is torch-style symmetric k//2.
@@ -17,6 +19,8 @@ for a depthwise conv (is_depthwise), as float32 weights holding the int8
 values for ops.conv_int8.conv_w8a8_depthwise (Kernel 4 has no grouped mode).
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -288,3 +292,92 @@ def sppf(p: dict, key: str, x: torch.Tensor, k: int = 5):
 def upsample2x(x: torch.Tensor):
     """Nearest-neighbour 2x upsample (ultralytics nn.Upsample)."""
     return F.interpolate(x, scale_factor=2, mode="nearest")
+
+
+# ---------------------------------------------------------------------------
+# Initialisation (after posebyte_tpu/models/layers.py:45, :266, :293-458)
+# ---------------------------------------------------------------------------
+# Each initialiser writes its block's parameters into the flat dict `p`
+# under `key`, in the key order and with the shapes (OIHW) and dtypes
+# (float32) that params_from_jax gives for the JAX initialiser's tree: He-
+# normal weights (std sqrt(2 / fan_in)) drawn from the torch.Generator `g`,
+# zero biases. The JAX tree's static leaves (a bottleneck's "add", a
+# block's "c_h", SPPF's "k", the attention's head counts) hold no array,
+# so they have no key; the forward reads them from the call site.
+
+def conv_init(p: dict, key: str, g: torch.Generator, c_in: int, c_out: int,
+              k: int = 1):
+    """A conv's He-normal weights [c_out, c_in, k, k] and zero bias."""
+    std = math.sqrt(2.0 / (c_in * k * k))
+    p[key + ".w"] = (torch.randn((c_out, c_in, k, k), generator=g)
+                     * std).numpy()
+    p[key + ".b"] = np.zeros((c_out,), np.float32)
+
+
+def dwconv_init(p: dict, key: str, g: torch.Generator, c: int, k: int = 3):
+    """A depthwise conv's He-normal weights [c, 1, k, k] (fan-in k * k)
+    and zero bias."""
+    std = math.sqrt(2.0 / (k * k))
+    p[key + ".w"] = (torch.randn((c, 1, k, k), generator=g) * std).numpy()
+    p[key + ".b"] = np.zeros((c,), np.float32)
+
+
+def bottleneck_init(p, key, g, c_in, c_out, e=0.5, k=(3, 3)):
+    c_h = int(c_out * e)
+    conv_init(p, key + ".cv1", g, c_in, c_h, k[0])
+    conv_init(p, key + ".cv2", g, c_h, c_out, k[1])
+
+
+def c2f_init(p, key, g, c_in, c_out, n=1, e=0.5):
+    c_h = int(c_out * e)
+    conv_init(p, key + ".cv1", g, c_in, 2 * c_h, 1)
+    conv_init(p, key + ".cv2", g, (2 + n) * c_h, c_out, 1)
+    for i in range(n):
+        bottleneck_init(p, f"{key}.m.{i}", g, c_h, c_h, e=1.0)
+
+
+def c3_init(p, key, g, c_in, c_out, n=1, e=0.5, bk=(1, 3)):
+    c_h = int(c_out * e)
+    conv_init(p, key + ".cv1", g, c_in, c_h, 1)
+    conv_init(p, key + ".cv2", g, c_in, c_h, 1)
+    conv_init(p, key + ".cv3", g, 2 * c_h, c_out, 1)
+    for i in range(n):
+        bottleneck_init(p, f"{key}.m.{i}", g, c_h, c_h, e=1.0, k=bk)
+
+
+def c3k2_init(p, key, g, c_in, c_out, n=1, c3k=False, e=0.5):
+    """YOLO11's C3k2: inner block i (a C3k of two 3x3 bottlenecks, or a
+    bottleneck of hidden width c_h / 2) under "m.{i}.1", as c3k2 reads
+    it."""
+    c_h = int(c_out * e)
+    conv_init(p, key + ".cv1", g, c_in, 2 * c_h, 1)
+    conv_init(p, key + ".cv2", g, (2 + n) * c_h, c_out, 1)
+    for i in range(n):
+        if c3k:
+            c3_init(p, f"{key}.m.{i}.1", g, c_h, c_h, n=2, bk=(3, 3))
+        else:
+            bottleneck_init(p, f"{key}.m.{i}.1", g, c_h, c_h, e=0.5)
+
+
+def sppf_init(p, key, g, c_in, c_out):
+    c_h = c_in // 2
+    conv_init(p, key + ".cv1", g, c_in, c_h, 1)
+    conv_init(p, key + ".cv2", g, c_h * 4, c_out, 1)
+
+
+def _attention_init(p, key, g, dim, num_heads):
+    key_dim = dim // num_heads // 2
+    conv_init(p, key + ".qkv", g, dim, dim + 2 * key_dim * num_heads, 1)
+    conv_init(p, key + ".proj", g, dim, dim, 1)
+    dwconv_init(p, key + ".pe", g, dim, 3)
+
+
+def c2psa_init(p, key, g, c, n=1, e=0.5):
+    c_h = int(c * e)
+    conv_init(p, key + ".cv1", g, c, 2 * c_h, 1)
+    conv_init(p, key + ".cv2", g, 2 * c_h, c, 1)
+    for i in range(n):
+        m = f"{key}.m.{i}"
+        _attention_init(p, m + ".attn", g, c_h, max(1, c_h // 64))
+        conv_init(p, m + ".ffn1", g, c_h, 2 * c_h, 1)
+        conv_init(p, m + ".ffn2", g, 2 * c_h, c_h, 1)

@@ -7,8 +7,10 @@ pose-colour descriptor (ops/reid.py), so the tracker takes either.
 The weights are a dict of float32 tensors w1 [75, 32], b1 [32], w2 [32, 3],
 b2 [3]: load_reid_head reads the JAX package's safetensors file (e.g.
 assets/reid-head-synthetic.safetensors) with the port's own reader, and
-reid_head_from_jax converts the JAX head's arrays. Initialising and saving
-a head belong to training, which the port does not have yet.
+reid_head_from_jax converts the JAX head's arrays. init_reid_head draws a
+new head (uniform weights, zero biases, from a torch.Generator) and
+save_reid_head writes the file both packages read
+(scripts/train_reid.py trains it).
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ import torch
 
 from ..ops.oks import sum_in_order
 from ..ops.reid import REID_DIM, _at
-from .weights import read_safetensors
+from .weights import read_safetensors, write_safetensors
 
 # Patch geometry: PATCH x PATCH taps, SPACING px apart, centred on each
 # keypoint (model-input pixels).
@@ -29,6 +31,29 @@ IN_DIM = PATCH * PATCH * 3
 HIDDEN = 32
 
 _KEYS = ("w1", "b1", "w2", "b2")
+
+
+def init_reid_head(seed=0, hidden: int = HIDDEN) -> dict:
+    """A new head, after the JAX init_reid_head: w1 [IN_DIM, hidden] and w2
+    [hidden, 3] uniform in +-1/sqrt(fan-in), zero biases; float32 CPU
+    tensors drawn from `seed` (an int or a torch.Generator)."""
+    from .yolo_pose import as_generator
+    g = as_generator(seed)
+    s1, s2 = 1.0 / np.sqrt(IN_DIM), 1.0 / np.sqrt(hidden)
+    return {
+        "w1": (torch.rand((IN_DIM, hidden), generator=g) * 2 - 1) * s1,
+        "b1": torch.zeros((hidden,)),
+        "w2": (torch.rand((hidden, 3), generator=g) * 2 - 1) * s2,
+        "b2": torch.zeros((3,)),
+    }
+
+
+def save_reid_head(params: dict, path: str) -> None:
+    """Write a head as the JAX package's save_reid_head does (safetensors,
+    float32), for either package's load_reid_head."""
+    write_safetensors(path, {k: np.asarray(torch.as_tensor(params[k])
+                                           .detach().cpu(), np.float32)
+                             for k in _KEYS})
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,6 +1,7 @@
 """YOLOv8-pose and YOLO11-pose forward to the undecoded head outputs,
-after posebyte_tpu/models/yolo_pose.py (ModelConfig, the two backbones
-and necks, _head_level, forward_heads, make_anchors, _dfl).
+after posebyte_tpu/models/yolo_pose.py (ModelConfig, init_params and
+_head_init, the two backbones and necks, _head_level, forward_heads,
+make_anchors, _dfl).
 
 The head layout matches the JAX package: box logits [B, A, 64], class
 logits [B, A, 1], raw keypoints [B, A, 51], with A the row-major flatten of
@@ -60,6 +61,96 @@ MODEL_CONFIGS = {
     "yolo11x-pose": ModelConfig("yolo11x-pose", "v11", 1.00, 1.50, 512,
                                 c3k_everywhere=True),
 }
+
+
+def as_generator(seed) -> torch.Generator:
+    """A CPU torch.Generator: `seed` itself when it is one, else a new one
+    seeded with the int `seed`."""
+    if isinstance(seed, torch.Generator):
+        return seed
+    return torch.Generator().manual_seed(int(seed))
+
+
+def _head_init(p: dict, g: torch.Generator, cfg: ModelConfig, chs):
+    """The pose head's parameters over the three pyramid levels, branch by
+    branch as the JAX tree lists them (head.cv2.{0,1,2}, head.cv3...,
+    head.cv4...)."""
+    c2 = max(16, chs[0] // 4, 4 * REG_MAX)
+    c3 = max(chs[0], min(NUM_CLASSES, 100))
+    c4 = max(chs[0] // 4, NK)
+    for i, ch in enumerate(chs):
+        k = f"head.cv2.{i}"
+        L.conv_init(p, k + ".0", g, ch, c2, 3)
+        L.conv_init(p, k + ".1", g, c2, c2, 3)
+        L.conv_init(p, k + ".2", g, c2, 4 * REG_MAX, 1)
+    for i, ch in enumerate(chs):
+        k = f"head.cv3.{i}"
+        if cfg.family == "v11":
+            L.dwconv_init(p, k + ".0_dw", g, ch, 3)
+            L.conv_init(p, k + ".0_pw", g, ch, c3, 1)
+            L.dwconv_init(p, k + ".1_dw", g, c3, 3)
+            L.conv_init(p, k + ".1_pw", g, c3, c3, 1)
+        else:
+            L.conv_init(p, k + ".0", g, ch, c3, 3)
+            L.conv_init(p, k + ".1", g, c3, c3, 3)
+        L.conv_init(p, k + ".2", g, c3, NUM_CLASSES, 1)
+    for i, ch in enumerate(chs):
+        k = f"head.cv4.{i}"
+        L.conv_init(p, k + ".0", g, ch, c4, 3)
+        L.conv_init(p, k + ".1", g, c4, c4, 3)
+        L.conv_init(p, k + ".2", g, c4, NK, 1)
+
+
+def init_params(seed=0, name: str = "yolov8n-pose") -> dict:
+    """Random weights for the named model: the port's flat dict of float32
+    numpy arrays (OIHW), with the keys, shapes and dtypes of
+    params_from_jax(JAX init_params(key, name)). He-normal weights and zero
+    biases, drawn from `seed` (an int or a torch.Generator); the values
+    are not JAX's, whose generator PyTorch does not have."""
+    cfg = MODEL_CONFIGS[name]
+    g = as_generator(seed)
+    ch = cfg.ch
+    p: dict = {}
+    if cfg.family == "v8":
+        d3, d6 = cfg.n(3), cfg.n(6)
+        L.conv_init(p, "b0", g, 3, ch(64), 3)
+        L.conv_init(p, "b1", g, ch(64), ch(128), 3)
+        L.c2f_init(p, "b2", g, ch(128), ch(128), d3)
+        L.conv_init(p, "b3", g, ch(128), ch(256), 3)
+        L.c2f_init(p, "b4", g, ch(256), ch(256), d6)
+        L.conv_init(p, "b5", g, ch(256), ch(512), 3)
+        L.c2f_init(p, "b6", g, ch(512), ch(512), d6)
+        L.conv_init(p, "b7", g, ch(512), ch(1024), 3)
+        L.c2f_init(p, "b8", g, ch(1024), ch(1024), d3)
+        L.sppf_init(p, "b9", g, ch(1024), ch(1024))
+        L.c2f_init(p, "h12", g, ch(1024) + ch(512), ch(512), d3)
+        L.c2f_init(p, "h15", g, ch(512) + ch(256), ch(256), d3)
+        L.conv_init(p, "h16", g, ch(256), ch(256), 3)
+        L.c2f_init(p, "h18", g, ch(256) + ch(512), ch(512), d3)
+        L.conv_init(p, "h19", g, ch(512), ch(512), 3)
+        L.c2f_init(p, "h21", g, ch(512) + ch(1024), ch(1024), d3)
+    else:
+        d2, ck = cfg.n(2), cfg.c3k_everywhere
+        L.conv_init(p, "b0", g, 3, ch(64), 3)
+        L.conv_init(p, "b1", g, ch(64), ch(128), 3)
+        L.c3k2_init(p, "b2", g, ch(128), ch(256), d2, ck, e=0.25)
+        L.conv_init(p, "b3", g, ch(256), ch(256), 3)
+        L.c3k2_init(p, "b4", g, ch(256), ch(512), d2, ck, e=0.25)
+        L.conv_init(p, "b5", g, ch(512), ch(512), 3)
+        L.c3k2_init(p, "b6", g, ch(512), ch(512), d2, True)
+        L.conv_init(p, "b7", g, ch(512), ch(1024), 3)
+        L.c3k2_init(p, "b8", g, ch(1024), ch(1024), d2, True)
+        L.sppf_init(p, "b9", g, ch(1024), ch(1024))
+        L.c2psa_init(p, "b10", g, ch(1024), d2)
+        L.c3k2_init(p, "h13", g, ch(1024) + ch(512), ch(512), d2, ck)
+        # v11's layer 4 is ch(512) wide, so the P3 concat is 2 ch(512)
+        L.c3k2_init(p, "h16", g, ch(512) + ch(512), ch(256), d2, ck)
+        L.conv_init(p, "h17", g, ch(256), ch(256), 3)
+        L.c3k2_init(p, "h19", g, ch(256) + ch(512), ch(512), d2, ck)
+        L.conv_init(p, "h20", g, ch(512), ch(512), 3)
+        L.c3k2_init(p, "h22", g, ch(512) + ch(1024), ch(1024), d2, True)
+    _head_init(p, g, cfg, (ch(256), ch(512), ch(1024)))
+    return p
 
 
 def _backbone_neck_v8(p, x):

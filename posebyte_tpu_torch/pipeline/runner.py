@@ -39,7 +39,8 @@ from ..core.device import resolve_device, set_numeric_settings
 from ..core.structs import Detections, TrackerState
 from ..models.layers import prepare_params
 from ..models.weights import fold_stem_preprocess
-from ..models.yolo_pose import MODEL_CONFIGS, forward_heads, make_anchors
+from ..models.yolo_pose import (MODEL_CONFIGS, forward_heads, init_params,
+                                make_anchors)
 from ..ops.decode import decode_topk
 from ..ops.nms import MAX_N as NMS_MAX_N, pose_nms
 from ..ops.preprocess import letterbox_flat_nhwc, letterbox_params
@@ -78,6 +79,17 @@ def frame_tracks(ids, scores, poses, boxes, emit, frame_w: int,
     return results
 
 
+def model_params(config: PipelineConfig, params: dict | None, heads_fn,
+                 seed: int = 0) -> dict:
+    """`params`, or with params None the model's random weights from
+    `seed` (init_params); an injected detector needs its own."""
+    if params is not None:
+        return params
+    if heads_fn is not None:
+        raise ValueError("an injected heads_fn needs its params")
+    return init_params(seed, config.model_name)
+
+
 class Detector:
     """The detector front end, one for PosePipeline and both stream
     servers (pipeline/serving.py), so that they cannot drift apart: flat
@@ -88,8 +100,10 @@ class Detector:
 
     params: the unfolded checkpoint in the port's layout
     (models.load_params / models.params_from_jax), or the injected
-    detector's. heads_fn: optional (params, images_nhwc) -> (box [B, A, 64],
-    cls [B, A, 1], kpt [B, A, 51]) in place of the model, e.g.
+    detector's; None draws the model's random weights from `seed`
+    (models.init_params), as the JAX package does. heads_fn: optional
+    (params, images_nhwc) -> (box [B, A, 64], cls [B, A, 1], kpt [B, A,
+    51]) in place of the model, e.g.
     models.oracle.make_oracle_heads(); it forces raw_preproc=False (there
     is no stem to fold the normalisation into) and its params go to the
     device as they are. With the model, raw_preproc=True folds the BGR flip
@@ -102,10 +116,8 @@ class Detector:
 
     def __init__(self, config: PipelineConfig, params: dict | None,
                  device=None, dtype=None, heads_fn=None,
-                 reid_params: dict | None = None):
-        if params is None:
-            raise ValueError("params are required (models.load_params, or "
-                             "the injected detector's)")
+                 reid_params: dict | None = None, seed: int = 0):
+        params = model_params(config, params, heads_fn, seed)
         if config.precision not in _DTYPES:
             raise NotImplementedError(
                 f"precision {config.precision!r} is not ported")
@@ -185,8 +197,9 @@ class Detector:
 class PosePipeline:
     """End-to-end pose tracking on one device.
 
-    config, params, device, dtype, heads_fn and reid_params are those of
-    the Detector it runs (see there). reid_params: optional learned Re-ID
+    config, params, device, dtype, heads_fn, reid_params and seed are
+    those of the Detector it runs (see there; params None draws random
+    weights from seed). reid_params: optional learned Re-ID
     head weights (models.load_reid_head); with config.tracker.reid_weight >
     0 the tracker's appearance embeddings come from that head, else from
     the pose-colour descriptor.
@@ -198,9 +211,9 @@ class PosePipeline:
     def __init__(self, config: PipelineConfig = PipelineConfig(),
                  params: dict | None = None, device=None,
                  reid_params: dict | None = None, dtype=None,
-                 heads_fn=None):
+                 heads_fn=None, seed: int = 0):
         self.detector = Detector(config, params, device, dtype, heads_fn,
-                                 reid_params)
+                                 reid_params, seed)
         trk_cfg = self.config.tracker
         self.state = TrackerState.init(trk_cfg.max_tracks,
                                        trk_cfg.max_detections, self.device)

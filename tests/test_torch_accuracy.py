@@ -14,7 +14,15 @@ Each clip twice: rendered by the JAX package's cv2 renderer (the frames its
 bars were measured on), and by the port's numpy renderer, which differs by
 a few edge pixels and is what the card's host, which has no cv2, renders.
 The bars are the JAX package's, unchanged, for both.
+
+And the hard clip with the learned Re-ID head
+(assets/reid-head-synthetic, reid_weight 0.3) on the cv2 frames, the
+configuration of EVAL_HARD_r05.json's "reid03_learned": the port's ids
+equal to the JAX package's PosePipeline's in every frame, and its MOTA and
+IDF1 those of that file's seed 86002.
 """
+import json
+import dataclasses
 import os
 
 import numpy as np
@@ -64,9 +72,8 @@ def test_trained_n256_tracks_people_from_pixels(renderer):
     assert s["id_switches"] <= 1, s
 
 
-@pytest.mark.parametrize("renderer", list(RENDERERS))
-def test_hard_clip_bars(renderer):
-    n = 96
+def _hard_clip(renderer, n=96):
+    """The crowded clip's ground truth [(poses, active)] and frames."""
     scene = S.CrowdedScene(n_persons=8, width=W, height=H, seed=86002,
                            scale_range=(80.0, 130.0), speed=5.0,
                            entry_exit=True, clip_len=n)
@@ -75,6 +82,13 @@ def test_hard_clip_bars(renderer):
                           for i in range(8)])
     frames = [RENDERERS[renderer](p[a], W, H, colors=palette[a])
               for p, a in gts]
+    return gts, frames
+
+
+@pytest.mark.parametrize("renderer", list(RENDERERS))
+def test_hard_clip_bars(renderer):
+    n = 96
+    gts, frames = _hard_clip(renderer, n)
     pipe = _pipeline(conf=0.30, det_conf=0.15)
     s = evaluate_tracks(pipe, frames, [p for p, _ in gts], W, H,
                         warmup=pipe.config.tracker.min_hits,
@@ -83,3 +97,45 @@ def test_hard_clip_bars(renderer):
     assert s["MOTA"] >= 0.51, s
     assert s["IDF1"] >= 0.47, s
     assert s["id_switches"] <= 29, s
+
+
+def test_hard_clip_learned_reid_head_ids_match_jax():
+    import jax.numpy as jnp
+    from posebyte_tpu.core import config as JC
+    from posebyte_tpu.models.reid_head import load_reid_head as j_head
+    from posebyte_tpu.pipeline import PosePipeline as JPosePipeline
+    from posebyte_tpu_torch.models import load_reid_head
+
+    from test_torch_quant import jax_tree
+
+    head = os.path.join(os.path.dirname(ASSET), "reid-head-synthetic"
+                        ".safetensors")
+    gts, frames = _hard_clip("cv2")
+    pipe = _pipeline(conf=0.30, det_conf=0.15)
+    cfg = dataclasses.replace(pipe.config, tracker=TrackerConfig
+                              .from_conf_threshold(0.30, reid_weight=0.3))
+    params, name = load_params(ASSET)
+    pipe = PosePipeline(cfg, params, device="cpu",
+                        reid_params=load_reid_head(head))
+    jcfg = JC.PipelineConfig(
+        detector=JC.DetectorConfig(**dataclasses.asdict(cfg.detector)),
+        tracker=JC.TrackerConfig.from_conf_threshold(0.30, reid_weight=0.3),
+        model_name=name, precision="fp32")
+    jpipe = JPosePipeline(jcfg, jax_tree(params, name), dtype=jnp.float32,
+                          reid_params=j_head(head))
+    for i, frame in enumerate(frames):
+        mine = pipe.fetch_outputs(pipe.process_frame(frame), W, H)
+        theirs = jpipe.fetch_outputs(jpipe.process_frame(frame), W, H)
+        assert [t.track_id for t in mine] == \
+            [t.track_id for t in theirs], i
+    pipe.reset()
+    s = evaluate_tracks(pipe, frames, [p for p, _ in gts], W, H,
+                        warmup=pipe.config.tracker.min_hits,
+                        gt_active=[a for _, a in gts])
+    with open(os.path.join(os.path.dirname(os.path.dirname(ASSET)),
+                           "EVAL_HARD_r05.json")) as f:
+        record = json.load(f)
+    row = record["configs"]["reid03_learned"]
+    seed = record["seeds"].index(86002)
+    assert abs(s["MOTA"] - row["MOTA_per_seed"][seed]) < 1e-4, s
+    assert abs(s["IDF1"] - row["IDF1_per_seed"][seed]) < 1e-4, s

@@ -4,9 +4,10 @@ JAX-rendered frames of the crowded scene (posebyte_tpu.utils.synthetic),
 yolov8n-pose at 256 from assets/, fp32, -v: the per-frame ids equal to
 posebyte_tpu.cli.demo's, the chunked ids (--chunk 8) equal to the
 per-frame ones, and a --save-state file of either package resumed by the
-other with the same ids; the benchmark's JSON keys; and the refusals (no
-card without --device cpu, and each flag value the port cannot honour,
-naming its ROADMAP item).
+other with the same ids; the benchmark's JSON keys; a bare model name on
+random weights in every CLI; and the refusals (no card without --device
+cpu, and each flag value the port cannot honour, naming its ROADMAP
+item).
 
 The JAX package's load_params builds its tree with init_params, whose
 random initialisation is replaced here by jax.eval_shape (every leaf is
@@ -162,22 +163,13 @@ def test_no_card_and_no_device_cpu_fails(cli):
 
 
 @pytest.mark.parametrize("cli,argv,item", [
-    ("demo", ["-e", "yolov8n-pose", "-i", "x.mp4", "--device", "cpu"],
-     "Training"),
-    ("evaluate", ["-e", "yolo11n-pose", "-i", "x.mp4", "-g", "gt.npz",
-                  "--device", "cpu"], "Training"),
-    ("export", ["-m", "yolov8s-pose", "-o", "x.safetensors", "--device",
-                "cpu"], "Training"),
-    ("benchmark", ["-n", "1", "-e", "yolov8n-pose", "--device", "cpu"],
-     "Training"),
     ("demo", ["-e", ASSET, "-i", "x.mp4", "--topk-impl", "bisect"],
      "Decode variants"),
     ("demo", ["-e", ASSET, "-i", "x.mp4", "--topk-impl", "approx"],
      "Decode variants"),
     ("export", ["-m", ASSET, "-o", "x.safetensors", "--aot", "e.hlo"],
      "Engine and legacy NMS"),
-], ids=["demo_name", "evaluate_name", "export_name", "benchmark_name",
-        "bisect", "approx", "aot"])
+], ids=["bisect", "approx", "aot"])
 def test_unsupported_flags_name_their_roadmap_item(cli, argv, item, tmp_path,
                                                    monkeypatch):
     monkeypatch.chdir(tmp_path)
@@ -186,6 +178,46 @@ def test_unsupported_flags_name_their_roadmap_item(cli, argv, item, tmp_path,
     with pytest.raises(SystemExit, match=f"ROADMAP Queue 1, '{item}"):
         CLIS[cli][0](argv)
     assert not os.path.exists("x.safetensors")
+
+
+@pytest.mark.parametrize("cli", list(CLIS))
+def test_bare_model_name_runs_random_weights(cli, clip, tmp_path,
+                                             monkeypatch, capsys):
+    """A bare model name runs on random weights (init_params, seed 0), as
+    in the JAX package, whose load_model_params returns no params for it
+    and whose CLIs then initialise the model: the same key tree."""
+    from posebyte_tpu.cli.demo import load_model_params as jload
+    from posebyte_tpu_torch.models.weights import load_params, \
+        params_from_jax
+    monkeypatch.chdir(tmp_path)
+    name = "yolo11n-pose" if cli == "evaluate" else "yolov8n-pose"
+    params, got = demo.load_model_params(name)
+    assert (None, name) == jload(name) and got == name
+    tree = jax.eval_shape(lambda k: init_params(k, name),
+                          jax.random.PRNGKey(0))
+    assert sorted(params) == sorted(params_from_jax(jax.tree.map(
+        lambda s: np.zeros(s.shape, s.dtype), tree)))
+    small = ["--size", "64", "--precision", "fp32", "--device", "cpu"]
+    if cli == "demo":
+        out = _run(demo.main, ["-e", name, "-i", clip] + small, capsys)
+        assert f"Frames processed: {N_FRAMES}" in out
+    elif cli == "evaluate":
+        np.savez("gt.npz", poses=np.zeros((N_FRAMES, 1, 17, 3), np.float32))
+        _run(evaluate.main, ["-e", name, "-i", clip, "-g", "gt.npz",
+                             "--json", "--size", "64", "--device", "cpu"],
+             capsys)
+    elif cli == "export":
+        _run(export.main, ["-m", name, "-o", "x.safetensors", "-p", "fp32",
+                           "--device", "cpu"], capsys)
+        saved, meta_name = load_params("x.safetensors")
+        assert meta_name == name
+        for k, v in params.items():
+            np.testing.assert_array_equal(saved[k], v)
+    else:
+        out = _run(benchmark.main, ["-n", "1", "-e", name, "--json",
+                                    "--device", "cpu"], capsys)
+        assert json.loads(out.strip().splitlines()[-1])[
+            f"e2e_{name}_ms"] > 0
 
 
 def test_profiling_records_match_jax(capsys):

@@ -1,7 +1,8 @@
 """Importing posebyte_tpu_torch must stay light (mirrors
-tests/test_import_hygiene.py): no JAX, no JAX package, no safetensors, no
-cv2, no triton; no CUDA context; no kernel build and no native build. Run
-in a fresh interpreter, since this test process has imported JAX already.
+tests/test_import_hygiene.py): no JAX, no optax, no JAX package, no
+safetensors, no cv2, no triton; no CUDA context, no process group; no
+kernel build and no native build. Run in a fresh interpreter, since this
+test process has imported JAX already.
 
 cv2 is absent on the card's host: a module-level `import cv2` is forbidden
 everywhere in the port, and an import inside a function only in the two
@@ -34,11 +35,18 @@ def test_port_import_is_light(tmp_path):
         " posebyte_tpu_torch.utils.video,"
         " posebyte_tpu_torch.utils.evaluation,"
         " posebyte_tpu_torch.utils.native,"
-        " posebyte_tpu_torch.utils.profiling;"
-        "bad = [m for m in ('jax', 'flax', 'posebyte_tpu', 'safetensors',"
-        " 'cv2', 'triton') if m in sys.modules];"
+        " posebyte_tpu_torch.utils.profiling,"
+        " posebyte_tpu_torch.models.train, posebyte_tpu_torch.models.optim,"
+        " posebyte_tpu_torch.parallel, posebyte_tpu_torch.parallel.train,"
+        " posebyte_tpu_torch.parallel.sharding,"
+        " posebyte_tpu_torch.scripts.train_synthetic,"
+        " posebyte_tpu_torch.scripts.train_reid;"
+        "import torch.distributed as dist;"
+        "bad = [m for m in ('jax', 'flax', 'optax', 'posebyte_tpu',"
+        " 'safetensors', 'cv2', 'triton') if m in sys.modules];"
         "assert not bad, bad;"
         "assert not torch.cuda.is_initialized();"
+        "assert not dist.is_initialized();"
         "print('CLEAN')"
     )
     env = {**os.environ, "POSEBYTE_CUDA_BUILD_DIR": str(build / "cuda"),
@@ -51,7 +59,10 @@ def test_port_import_is_light(tmp_path):
 
 @pytest.mark.parametrize("module", [
     "posebyte_tpu_torch.tracker", "posebyte_tpu_torch.tracker.output",
-    "posebyte_tpu_torch.ops.tracker_chunk", "posebyte_tpu_torch.cli.demo"])
+    "posebyte_tpu_torch.ops.tracker_chunk", "posebyte_tpu_torch.cli.demo",
+    "posebyte_tpu_torch.parallel", "posebyte_tpu_torch.parallel.train",
+    "posebyte_tpu_torch.scripts.train_synthetic",
+    "posebyte_tpu_torch.scripts.train_reid"])
 def test_module_imports_first(module):
     """Each module imports in a fresh interpreter before any other part of
     the port (tracker.step imports ops, whose package imports
@@ -64,7 +75,7 @@ def test_module_imports_first(module):
 
 # A module-level import of any of these, or PyTorch's extension headers,
 # anywhere in the port; cv2 inside a function only in CV2_MODULES.
-FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|flax|posebyte_tpu|"
+FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|posebyte_tpu|"
                        r"safetensors|cv2)\b|cpp_extension|"
                        r"torch/extension\.h")
 TOP_LEVEL_CV2 = re.compile(r"^(import|from)\s+cv2\b")
@@ -80,9 +91,10 @@ def refused(line: str, rel: str) -> bool:
 
 
 def test_port_sources_name_no_jax():
-    """No module of the port imports JAX, the JAX package, safetensors or
-    cv2 at module level, and no kernel source pulls in PyTorch's extension
-    headers; cv2 is imported inside a function only in CV2_MODULES."""
+    """No module of the port imports JAX, optax, the JAX package,
+    safetensors or cv2 at module level, and no kernel source pulls in
+    PyTorch's extension headers; cv2 is imported inside a function only
+    in CV2_MODULES."""
     roots = [os.path.join(REPO, "posebyte_tpu_torch"),
              os.path.join(REPO, "chip_smoke.py")]
     hits = []
@@ -106,5 +118,6 @@ def test_cv2_rule_catches_what_it_forbids():
     assert refused("from cv2 import imread\n", video)
     assert refused("    import cv2\n", demo)
     assert refused("    import jax\n", video)
+    assert refused("    import optax\n", demo)
     assert refused("#include <torch/extension.h>\n", video)
     assert not refused("x = _cv2()\n", demo)

@@ -380,8 +380,9 @@ def test_server_runs_on_the_card_unless_told():
         with pytest.raises(RuntimeError):
             cls(STREAMS, (H, W), config=tcfg, params=HEAD,
                 heads_fn=make_oracle_heads())
-    with pytest.raises(ValueError):
-        TS.StreamServer(2, (H, W), config=tcfg, device="cpu")   # no params
+    with pytest.raises(ValueError):     # an injected detector's params
+        TS.StreamServer(2, (H, W), config=tcfg, device="cpu",
+                        heads_fn=make_oracle_heads())
 
 
 @pytest.fixture(scope="module")
