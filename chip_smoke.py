@@ -2,8 +2,11 @@
 """Smoke run of posebyte_tpu_torch on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only decode_variants,engine,aot,debug
 
-Phases, each printing one JSON line with its elapsed seconds:
+Phases, each printing one JSON line with its elapsed seconds (with --only:
+device, build, kernels, int8_calibration and the named ones of the last
+four):
   device       the card's name and power limit (nvidia-smi)
   build        nvcc builds the kernels in csrc/ (or loads the cached build);
                each kernel's registers and spills as ptxas reports them
@@ -225,6 +228,34 @@ Phases, each printing one JSON line with its elapsed seconds:
                make_train_step bit for bit (SGD, cuDNN and the index
                backward in their deterministic modes); make_dp_scan_train
                for 10 steps lowers the loss
+  decode_variants  the headline chunk (K = 128, 1280x720, bf16, raw u8)
+               with decode_fusion post or tail and topk_impl sort, bisect
+               or approx: outputs equal to post/sort bit for bit, launches
+               per chunk nms_keep 1, tracker_chunk 1, auction 0, each
+               variant's decode device ms and call ms per chunk on the
+               chunk's own heads; the per-frame path with tail and bisect
+               (1 and 3 launches a frame) equal to post/sort; tail and
+               bisect in fp32 on the CPU and the card (a chunk of 8 and 4
+               frames): ids equal, keypoints within 1e-2 px; the packed
+               stem (P = 4, B = 8, fp32) giving the plain stem's detections
+  engine       models.engine.YoloPoseEngine (yolov8n-pose 640, bf16) on
+               1280x720 frames: detect (legacy NMS), detect_batch of 8,
+               detect_device_native (Kernel 1 once a call),
+               detect_from_device, each timed; the int8 engine (59 Kernel 4
+               launches and 1 Kernel 1 launch a frame); fp32 card against
+               CPU (validity equal, keypoints within 1e-2 px)
+  aot          models.aot: the bf16, int8 and fp32 programs exported on the
+               card into build/aot and loaded back, each against eager
+               forward_raw (within AOT_REL of its largest value) and timed
+               beside it; the int8 program's runs launch Kernel 4 59 times
+               each, its plain version never; a CPU export against the
+               card's fp32 program (1e-2 px); a card program refused on
+               the CPU
+  debug        tracker.debug on the card against the CPU from the same
+               state (assignments, gates equal; costs within 1e-6; 3
+               Kernel 2 launches a call), dump_detections and
+               get_track_states equal, and utils.profiling.torch_trace's
+               Chrome trace holding the auction kernel by name
 Each path's launch counts are set to 0 just before it runs and read just
 after. Then a line {"kernels": [...]} with each kernel's launches (summed
 over the paths' runs, yolo11n-pose's included), error, times and bound
@@ -769,7 +800,6 @@ def auction_tier_rounds(calls):
 
 
 def phase_cpu_vs_card(t0, params, model=V8, phase="cpu_vs_card"):
-    import numpy as np
     from posebyte_tpu_torch.core import PipelineConfig
     from posebyte_tpu_torch.pipeline import PosePipeline
 
@@ -780,13 +810,7 @@ def phase_cpu_vs_card(t0, params, model=V8, phase="cpu_vs_card"):
         pipe = PosePipeline(cfg, params, device=dev)
         runs[dev] = [pipe.fetch_outputs(pipe.process_frame(f), WIDTH, HEIGHT)
                      for f in frames]
-    ids_equal, kp_err = True, 0.0
-    for a, b in zip(runs["cpu"], runs["cuda"]):
-        ids_equal &= [t.track_id for t in a] == [t.track_id for t in b]
-        if len(a) == len(b) and a:
-            kp_err = max(kp_err, float(np.abs(
-                np.stack([t.keypoints for t in a])
-                - np.stack([t.keypoints for t in b])).max()))
+    ids_equal, kp_err = tracks_diff(runs["cpu"], runs["cuda"])
     emit(phase, t0, model=model, frames=CMP_FRAMES, ids_equal=ids_equal,
          tracks_per_frame=[len(r) for r in runs["cuda"]],
          max_kp_diff_px=kp_err)
@@ -976,7 +1000,6 @@ def model_device_ms(pipe, frames):
 
 def phase_chunk_cpu_vs_card(t0, params, model=V8,
                             phase="chunk_cpu_vs_card"):
-    import numpy as np
     from posebyte_tpu_torch.core import PipelineConfig
     from posebyte_tpu_torch.pipeline import PosePipeline
 
@@ -987,13 +1010,7 @@ def phase_chunk_cpu_vs_card(t0, params, model=V8,
         pipe = PosePipeline(cfg, params, device=dev)
         runs[dev] = pipe.fetch_chunk_outputs(pipe.process_chunk(frames),
                                              WIDTH, HEIGHT)
-    ids_equal, kp_err = True, 0.0
-    for a, b in zip(runs["cpu"], runs["cuda"]):
-        ids_equal &= [t.track_id for t in a] == [t.track_id for t in b]
-        if len(a) == len(b) and a:
-            kp_err = max(kp_err, float(np.abs(
-                np.stack([t.keypoints for t in a])
-                - np.stack([t.keypoints for t in b])).max()))
+    ids_equal, kp_err = tracks_diff(runs["cpu"], runs["cuda"])
     emit(phase, t0, model=model, frames=CMP_CHUNK, ids_equal=ids_equal,
          tracks_per_frame=[len(r) for r in runs["cuda"]],
          max_kp_diff_px=kp_err)
@@ -3571,6 +3588,482 @@ def phase_dp(t0):
                          "the DP loop did not lower the loss")
 
 
+# ---------------------------------------------------------------------------
+# The decode variants, the engine, the locked engine and the debug hooks
+# ---------------------------------------------------------------------------
+
+DECODE_VARIANTS = (("post", "sort"), ("tail", "sort"), ("post", "bisect"),
+                   ("post", "approx"))
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize")
+
+
+def device_times(fn, reps):
+    """Device time of fn, two ways: "device_ms", the sleep-ahead time
+    (utils/timing.py::device_ms; None where fn waits for the device, which
+    that method cannot time), and from torch.profiler over `reps` calls
+    after a warm-up: "busy_ms" per call (the device time of its kernels
+    and copies), "launches" per call, and "host_syncs" per call (the
+    synchronising CUDA runtime calls it made)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    busy = launches = syncs = 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            busy += e.device_time_total
+            launches += 1
+        elif e.name in SYNC_CALLS:
+            syncs += 1
+    # The host blocks once ~1000 launches wait in the card's queue, behind
+    # the sleep (model_device_ms): as many calls as stay below that.
+    n = max(1, min(reps, int(900 * reps // max(launches, 1))))
+    try:
+        dev = device_ms(fn, n)
+    except RuntimeError:
+        dev = None
+    # the last synchronize above is the timing's own
+    return {"device_ms": dev, "busy_ms": busy / 1e3 / reps,
+            "launches": launches / reps, "host_syncs": (syncs - 1) / reps}
+
+
+def variant_config(fusion, topk, precision="bf16"):
+    from posebyte_tpu_torch.core import DetectorConfig, PipelineConfig
+    return PipelineConfig(detector=DetectorConfig(decode_fusion=fusion,
+                                                  topk_impl=topk),
+                          precision=precision)
+
+
+def tracks_diff(a, b):
+    """(ids equal, max keypoint difference px) of two runs' per-frame
+    TrackOutput lists."""
+    import numpy as np
+    ids_equal, err = True, 0.0
+    for x, y in zip(a, b):
+        ids_equal &= [t.track_id for t in x] == [t.track_id for t in y]
+        if len(x) == len(y) and x:
+            err = max(err, float(np.abs(
+                np.stack([t.keypoints for t in x])
+                - np.stack([t.keypoints for t in y])).max()))
+    return ids_equal, err
+
+
+def phase_decode_variants(t0, params, rows):
+    """The headline chunk (K = 128 frames of 1280x720, bf16, raw u8) through
+    PosePipeline with decode_fusion "post" or "tail" and topk_impl "sort",
+    "bisect" or "approx": each chunk's outputs equal to post/sort's bit for
+    bit, launches per chunk nms_keep 1, tracker_chunk 1, auction 0; each
+    variant's decode timed on the chunk's own head outputs (call ms and
+    device_times per chunk); the per-frame path with tail and bisect over
+    FRAMES frames (1 and 3 launches a frame) with post/sort's ids; tail and
+    bisect in fp32 on the CPU and the card, a chunk of K = 8 and 4 frames:
+    ids equal, keypoints within 1e-2 px; and layers.packed_stem (P = 4) at
+    B = 8 against the plain stem on the card: the same detections."""
+    import numpy as np
+    import torch
+    from posebyte_tpu_torch.ops.preprocess import letterbox_flat_nhwc
+    from posebyte_tpu_torch.pipeline import PosePipeline
+    from posebyte_tpu_torch.pipeline.runner import _decode, _decode_levels
+    kernels = _kernel_counts()
+    frames, gt = next(make_chunks(1, CHUNK))
+    ref, variants = None, {}
+    for fusion, topk in DECODE_VARIANTS:
+        pipe = PosePipeline(variant_config(fusion, topk), params)
+        flat = pipe.stage_chunk(frames)
+        outs, launches = counted_run(rows, kernels, lambda: pipe.
+                                     process_chunk_device(flat, HEIGHT,
+                                                          WIDTH))
+        host = {k: v.cpu() for k, v in outs.items()}
+        ref = ref or host
+        det_cfg = pipe.config.detector
+        with torch.inference_mode():
+            imgs = letterbox_flat_nhwc(flat, WIDTH, HEIGHT,
+                                       det_cfg.input_size, selection=True,
+                                       raw=True)
+            if fusion == "tail":
+                maps = pipe.detector.head_maps(pipe.params, imgs)
+
+                def dec():
+                    return _decode_levels(det_cfg, maps)
+            else:
+                heads = pipe.detector.heads(pipe.params, imgs)
+
+                def dec():
+                    return _decode(det_cfg, *heads)
+            dev, call = device_times(dec, 5), cuda_ms(dec, 5)
+        variants[f"{fusion}/{topk}"] = {
+            "launches": launches,
+            "equal_to_post_sort": all(torch.equal(host[k], ref[k])
+                                      for k in ref),
+            "decode_ms_per_chunk": call,
+            **{f"decode_{k}_per_chunk": v for k, v in dev.items()}}
+        del pipe
+    # per frame: tail + bisect against post + sort on the card
+    _, fr = make_frames(FRAMES)
+    per_frame = {}
+    for fusion, topk in (("post", "sort"), ("tail", "bisect")):
+        pipe = PosePipeline(variant_config(fusion, topk), params)
+        res, launches = counted_run(rows, kernels, lambda: [
+            pipe.fetch_outputs(pipe.process_frame(f), WIDTH, HEIGHT)
+            for f in fr])
+        per_frame[fusion] = (res, launches)
+    frame_ids_equal, frame_kp = tracks_diff(per_frame["post"][0],
+                                            per_frame["tail"][0])
+    # CPU against the card, tail + bisect, fp32
+    small, _ = next(make_chunks(1, CMP_CHUNK))
+    cfg = variant_config("tail", "bisect", "fp32")
+    runs = {}
+    for d in ("cpu", "cuda"):
+        pipe = PosePipeline(cfg, params, device=d)
+        runs[d] = pipe.fetch_chunk_outputs(pipe.process_chunk(small), WIDTH,
+                                           HEIGHT)
+        runs[d] += [pipe.fetch_outputs(pipe.process_frame(f), WIDTH, HEIGHT)
+                    for f in fr[:4]]
+    cmp_ids, cmp_kp = tracks_diff(runs["cpu"], runs["cuda"])
+    packed = packed_stem_check(params, frames[:8])
+    emit("decode_variants", t0, chunk=CHUNK, variants=variants,
+         frame_launches={k: v[1] for k, v in per_frame.items()},
+         frame_tail_bisect_ids_equal=frame_ids_equal,
+         frame_tail_bisect_max_kp_diff_px=frame_kp,
+         cpu_vs_card_ids_equal=cmp_ids, cpu_vs_card_max_kp_diff_px=cmp_kp,
+         cpu_vs_card_tracks=[len(r) for r in runs["cuda"]],
+         packed_stem=packed)
+    bad = [k for k, v in variants.items()
+           if not v["equal_to_post_sort"] or v["launches"] != {
+               "nms_keep": 1, "auction": 0, "tracker_chunk": 1}]
+    want = {"nms_keep": FRAMES, "auction": 3 * FRAMES, "tracker_chunk": 0}
+    if bad or any(v[1] != want for v in per_frame.values()):
+        raise SystemExit(f"decode_variants: {bad or per_frame} differ from "
+                         "post/sort or launch otherwise")
+    if not frame_ids_equal or frame_kp != 0.0:
+        raise SystemExit("decode_variants: the per-frame tail path differs "
+                         "from post")
+    if not cmp_ids or cmp_kp > 1e-2 or not any(runs["cuda"]):
+        raise SystemExit("decode_variants: the card and the CPU disagree")
+    if not packed["valid_equal"] or packed["max_kp_diff_px"] > 1e-2:
+        raise SystemExit(f"decode_variants: packed_stem {packed}")
+
+
+def packed_stem_check(params, frames):
+    """forward_heads with packed_stem=4 against the plain stem at fp32 on
+    the card, B = 8 frames letterboxed raw: the decoded, NMS'd detections'
+    validity equal and keypoints within 1e-2 px; and the stem output."""
+    import torch
+    from posebyte_tpu_torch.core import DetectorConfig
+    from posebyte_tpu_torch.models import layers as L
+    from posebyte_tpu_torch.models.layers import prepare_params
+    from posebyte_tpu_torch.models.weights import fold_stem_preprocess
+    from posebyte_tpu_torch.models.yolo_pose import build_model_heads
+    from posebyte_tpu_torch.ops.preprocess import letterbox_flat_nhwc
+    from posebyte_tpu_torch.pipeline.runner import _decode, _nms
+    cfg = DetectorConfig()
+    p = prepare_params(fold_stem_preprocess(params), torch.float32, "cuda")
+    flat = torch.from_numpy(frames.reshape(len(frames), -1)).cuda()
+    with torch.inference_mode():
+        imgs = letterbox_flat_nhwc(flat, WIDTH, HEIGHT, cfg.input_size,
+                                   selection=True, raw=True).float()
+        dets = []
+        for P in (0, 4):
+            heads, _ = build_model_heads(V8, torch.float32, packed_stem=P)
+            dets.append(_nms(cfg, _decode(cfg, *heads(p, imgs))))
+        x = imgs.permute(0, 3, 1, 2)
+        stem = (L.packed_stem(p, "b0", "b1", x, 4) -
+                L.conv_block(p, "b1", L.conv_block(p, "b0", x, 2), 2))
+    return {"valid_equal": bool(torch.equal(dets[0].valid, dets[1].valid)),
+            "detections": int(dets[0].valid.sum()),
+            "max_kp_diff_px": float((dets[0].poses - dets[1].poses)
+                                    .abs().max()),
+            "stem_max_abs_diff": float(stem.abs().max())}
+
+
+def engine_lists_diff(a, b):
+    """(detection counts equal, max keypoint difference px) of two
+    detect_batch results."""
+    import numpy as np
+    same, err = True, 0.0
+    for x, y in zip(a, b):
+        same &= len(x) == len(y)
+        for p, q in zip(x, y):
+            err = max(err, float(np.abs(p["keypoints"]
+                                        - q["keypoints"]).max()))
+    return same, err
+
+
+def phase_engine(t0, params, qparams, rows):
+    """YoloPoseEngine (yolov8n-pose 640, the normalised letterbox, the dense
+    decode) on 1280x720 frames of the synthetic scene: detect (the legacy
+    NMS), detect_batch of 8, detect_device_native (pose_nms: Kernel 1 once
+    a call) and detect_from_device, bf16, each timed (ms per call; the
+    device-native call by CUDA events, the host paths by the host's
+    clock, their copies back included); the int8 engine (the calibrated
+    w8a8 params) through detect_device_native over FRAMES frames: 59 Kernel
+    4 launches and one Kernel 1 launch a frame, no eager quantisation; in
+    fp32 the card against the CPU on 4 frames: detect_device_native's
+    validity equal and keypoints within 1e-2 px, detect_batch's counts
+    equal and keypoints within 1e-2 px."""
+    import numpy as np
+    import torch
+    from posebyte_tpu_torch.models.engine import YoloPoseEngine
+    kernels = _int8_counts()
+    _, frames = make_frames(FRAMES)
+    batch = np.stack(frames[:8])
+    eng = YoloPoseEngine(V8, params=params)                 # bf16, the card
+    staged = [torch.from_numpy(f.reshape(-1)).cuda() for f in frames]
+    native, launches = counted_run(rows, kernels, lambda: [
+        eng.detect_device_native(s, HEIGHT, WIDTH) for s in staged])
+    if any(not torch.isfinite(d.poses).all() for d in native):
+        raise SystemExit("engine: non-finite detections")
+    times = {"detect_device_native_ms": cuda_ms(
+        lambda: eng.detect_device_native(staged[0], HEIGHT, WIDTH), 20),
+        "detect_device_native_device": device_times(
+            lambda: eng.detect_device_native(staged[0], HEIGHT, WIDTH), 5)}
+    for name, fn in (("detect_ms", lambda: eng.detect(frames[0])),
+                     ("detect_batch8_ms", lambda: eng.detect_batch(batch)),
+                     ("detect_from_device_ms",
+                      lambda: eng.detect_from_device(staged[0], HEIGHT,
+                                                     WIDTH))):
+        fn()
+        t = time.perf_counter()
+        for _ in range(5):
+            fn()
+        times[name] = (time.perf_counter() - t) / 5 * 1e3
+    legacy = [len(x) for x in eng.detect_batch(batch)]
+    times["last_inference_ms_batch8"] = eng.get_last_inference_time()
+    dets_per_frame = [int(d.valid.sum()) for d in native]
+    del eng
+    q = YoloPoseEngine(V8, params=qparams, precision="int8")
+    _, q_launches = counted_run(rows, kernels, lambda: [
+        q.detect_device_native(s, HEIGHT, WIDTH) for s in staged])
+    times["int8_detect_device_native_ms"] = cuda_ms(
+        lambda: q.detect_device_native(staged[0], HEIGHT, WIDTH), 20)
+    del q
+    engs = {d: YoloPoseEngine(V8, params=params, precision="fp32", device=d)
+            for d in ("cpu", "cuda")}
+    nat = {d: [e.detect_device_native(torch.from_numpy(f.reshape(-1)).to(
+        d), HEIGHT, WIDTH) for f in frames[:4]] for d, e in engs.items()}
+    valid_equal = all(torch.equal(a.valid, b.valid.cpu())
+                      for a, b in zip(nat["cpu"], nat["cuda"]))
+    nat_kp = max(float((a.poses - b.poses.cpu()).abs().max())
+                 for a, b in zip(nat["cpu"], nat["cuda"]))
+    counts_equal, legacy_kp = engine_lists_diff(
+        *(e.detect_batch(batch[:4]) for e in engs.values()))
+    emit("engine", t0, frames=FRAMES, launches=launches,
+         int8_launches=q_launches, dets_per_frame=dets_per_frame,
+         legacy_dets_per_frame=legacy, **times,
+         cpu_vs_card_valid_equal=valid_equal,
+         cpu_vs_card_max_kp_diff_px=nat_kp,
+         cpu_vs_card_legacy_counts_equal=counts_equal,
+         cpu_vs_card_legacy_max_kp_diff_px=legacy_kp)
+    if launches != {"nms_keep": FRAMES, "auction": 0, "tracker_chunk": 0,
+                    "conv_int8": 0, "eager_quantize": 0}:
+        raise SystemExit(f"engine launch counts {launches}")
+    if q_launches != {"nms_keep": FRAMES, "auction": 0, "tracker_chunk": 0,
+                      "conv_int8": 59 * FRAMES, "eager_quantize": 0}:
+        raise SystemExit(f"int8 engine launch counts {q_launches}")
+    if min(dets_per_frame) < 1 or min(legacy) < 1:
+        raise SystemExit("engine: no detections")
+    if not (valid_equal and counts_equal) or max(nat_kp, legacy_kp) > 1e-2:
+        raise SystemExit("engine: the card and the CPU disagree")
+
+
+AOT_REL = 1e-3       # exported program against eager, of the largest value
+
+
+def phase_aot(t0, params, qparams, rows):
+    """models.aot on the card: yolov8n-pose 640 exported at bf16 and at int8
+    (w8a8), batch 1, into build/aot, loaded back and run on a letterboxed
+    1280x720 frame: each within AOT_REL of the eager forward_raw's largest
+    value (bit-equal reported), both timed against eager forward_raw (call
+    ms and device ms); the int8 program's FRAMES calls launch Kernel 4 59
+    times each and its plain version never; an fp32 program exported on
+    the CPU against the card's fp32 program within 1e-2 px; a card program
+    refused on the CPU."""
+    import torch
+    from posebyte_tpu_torch.models.aot import export_engine_aot, \
+        load_engine_aot
+    from posebyte_tpu_torch.models.layers import prepare_params
+    from posebyte_tpu_torch.models.yolo_pose import build_model
+    from posebyte_tpu_torch.ops import conv_int8 as CI
+    from posebyte_tpu_torch.ops.preprocess import letterbox_flat_nhwc
+    root = os.path.join(BUILD, "aot")
+    os.makedirs(root, exist_ok=True)
+    kernels = _int8_counts()
+    _, frames = make_frames(2)
+    x = letterbox_flat_nhwc(torch.from_numpy(frames[1].reshape(-1)).cuda(),
+                            WIDTH, HEIGHT, LETTERBOX)[None]
+    out = {}
+    for tag, p, dtype in (("bf16", params, torch.bfloat16),
+                          ("int8", qparams, torch.bfloat16),
+                          ("fp32", params, torch.float32)):
+        path = os.path.join(root, f"{tag}.pt2")
+        t = time.perf_counter()
+        size = export_engine_aot(p, V8, path, 1, LETTERBOX, dtype)
+        export_s = time.perf_counter() - t
+        t = time.perf_counter()
+        run = load_engine_aot(path)
+        load_s = time.perf_counter() - t
+        t = time.perf_counter()
+        run(x)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t
+        apply_fn, _ = build_model(V8, dtype)
+        prepared = prepare_params(p, dtype, "cuda")
+
+        def eager():
+            with torch.inference_mode():
+                return apply_fn(prepared, x)
+        plain = CI.conv_w8a8_plain
+        CI.conv_w8a8_plain = None              # the program must not use it
+        try:
+            res, launches = counted_run(rows, kernels, lambda: [
+                run(x) for _ in range(FRAMES)])
+        finally:
+            CI.conv_w8a8_plain = plain
+        want = eager()
+        err = float((res[-1] - want).abs().max())
+        out[tag] = {"bytes": size, "export_s": export_s, "load_s": load_s,
+                    "first_call_s": first_s, "t": time.perf_counter() - t0,
+                    "launches": launches, "bit_equal": bool(torch.equal(
+                        res[-1], want)),
+                    "max_abs_diff": err,
+                    "rel_diff": err / float(want.abs().max()),
+                    "ms": cuda_ms(lambda: run(x), 20),
+                    "device": device_times(lambda: run(x), 5),
+                    "eager_ms": cuda_ms(eager, 20),
+                    "eager_device": device_times(eager, 5)}
+    cpu_path = os.path.join(root, "fp32_cpu.pt2")
+    t = time.perf_counter()
+    export_engine_aot(params, V8, cpu_path, 1, LETTERBOX, torch.float32,
+                      device="cpu")
+    cpu_out = load_engine_aot(cpu_path, device="cpu")(x.cpu())
+    cpu_s = time.perf_counter() - t
+    card_out = load_engine_aot(os.path.join(root, "fp32.pt2"))(x).cpu()
+    cpu_err = float((cpu_out - card_out).abs().max())
+    try:
+        load_engine_aot(os.path.join(root, "fp32.pt2"), device="cpu")
+        refused = False
+    except ValueError:
+        refused = True
+    emit("aot", t0, programs=out, cpu_vs_card_max_abs_diff=cpu_err,
+         cpu_export_and_run_s=cpu_s,
+         card_program_refused_on_cpu=refused)
+    want_launch = {"bf16": 0, "fp32": 0, "int8": 59 * FRAMES}
+    for tag, o in out.items():
+        if o["launches"]["conv_int8"] != want_launch[tag] \
+                or o["launches"]["eager_quantize"] or o["launches"]["nms_keep"]:
+            raise SystemExit(f"aot {tag}: launch counts {o['launches']}")
+        if o["rel_diff"] > AOT_REL:
+            raise SystemExit(f"aot {tag}: {o['rel_diff']} from eager")
+    if cpu_err > 1e-2 or not refused:
+        raise SystemExit(f"aot: CPU program {cpu_err} px from the card's, "
+                         f"refused {refused}")
+
+
+def phase_debug(t0, rows):
+    """tracker.debug on the card: TrackerConfig's defaults, 6 people of the
+    synthetic scene with keypoint noise, 8 frames of tracker_step, then per
+    frame of 4 more tracker_step_debug on the card (3 Kernel 2 launches a
+    call) and on the CPU from the same state and detections: integer and
+    bool keys equal, float keys (poses, centres, OKS, costs) within 1e-6
+    relative plus 1e-6 (CUDA's expf and the CPU's differ by an ulp);
+    dump_detections
+    and get_track_states equal card and CPU; one debug call inside
+    utils.profiling.torch_trace, whose Chrome trace must hold the auction
+    kernel's device activity by name."""
+    import dataclasses
+    import json as _json
+    import numpy as np
+    import torch
+    from posebyte_tpu_torch.core import TrackerConfig
+    from posebyte_tpu_torch.core.structs import Detections, TrackerState
+    from posebyte_tpu_torch.tracker import tracker_step
+    from posebyte_tpu_torch.tracker.debug import (dump_detections,
+                                                  get_track_states,
+                                                  tracker_step_debug)
+    from posebyte_tpu_torch.utils.profiling import torch_trace
+    from posebyte_tpu_torch.utils.synthetic import SyntheticScene
+    cfg = TrackerConfig()
+    T, D = cfg.max_tracks, cfg.max_detections
+    scene = SyntheticScene(N_PERSONS, WIDTH, HEIGHT, seed=SEED)
+    rng = np.random.default_rng(SEED)
+
+    def dets():
+        gt = scene.step()
+        P = np.zeros((D, 17, 3), np.float32)
+        P[:N_PERSONS] = gt
+        P[:N_PERSONS, :, :2] += rng.normal(0, 1.5, (N_PERSONS, 17, 2))
+        B = np.zeros((D, 4), np.float32)
+        B[:N_PERSONS] = np.stack([P[:N_PERSONS, :, 0].min(1),
+                                  P[:N_PERSONS, :, 1].min(1),
+                                  P[:N_PERSONS, :, 0].max(1),
+                                  P[:N_PERSONS, :, 1].max(1)], -1)
+        S = np.zeros((D,), np.float32)
+        S[:N_PERSONS] = rng.uniform(0.4, 1.0, N_PERSONS)
+        return (P, B, S, np.arange(D) < N_PERSONS)
+
+    def on(arrays, dev):
+        return Detections(*(torch.from_numpy(np.asarray(a)).to(dev)
+                            for a in arrays))
+
+    def moved(state, dev):
+        return TrackerState(**{f.name: getattr(state, f.name).to(dev)
+                               for f in dataclasses.fields(state)})
+
+    state = TrackerState.init(T, D, "cuda")
+    kernels = _kernel_counts()
+    for _ in range(8):
+        state, _ = tracker_step(state, on(dets(), "cuda"), cfg)
+    mism, rel_err, calls, matched = [], 0.0, [], []
+    for _ in range(4):
+        arr = dets()
+        got, launches = counted_run(rows, kernels, lambda: tracker_step_debug(
+            state, on(arr, "cuda"), cfg))
+        calls.append(launches)
+        want = tracker_step_debug(moved(state, "cpu"), on(arr, "cpu"), cfg)
+        for k, v in want.items():
+            if v.dtype.kind in "biu":
+                ok = np.array_equal(got[k], v)
+            else:
+                ok = np.allclose(got[k], v, rtol=1e-6, atol=1e-6)
+                rel_err = max(rel_err, float(
+                    (np.abs(got[k] - v) / np.maximum(np.abs(v), 1)).max()))
+            if not ok:
+                mism.append(k)
+        matched.append(int((got["row_assign_final"] >= 0).sum()))
+        state, _ = tracker_step(state, on(arr, "cuda"), cfg)
+    dump_equal = dump_detections(on(arr, "cuda")) == \
+        dump_detections(on(arr, "cpu"))
+    states_equal = get_track_states(state) == \
+        get_track_states(moved(state, "cpu"))
+    trace_dir = os.path.join(BUILD, "trace")
+    with torch_trace(trace_dir) as trace:
+        tracker_step_debug(state, on(arr, "cuda"), cfg)
+        torch.cuda.synchronize()
+    with open(trace) as fh:
+        events = _json.load(fh)["traceEvents"]
+    traced = sorted({e["name"][:40] for e in events
+                     if e.get("cat") == "kernel" and "auction" in e["name"]})
+    emit("debug", t0, launches_per_call=calls, matched_per_call=matched,
+         mismatched_keys=sorted(set(mism)), max_rel_float_diff=rel_err,
+         dump_equal=dump_equal, track_states_equal=states_equal,
+         tracks=len(get_track_states(state)), trace_kernels=traced,
+         trace_bytes=os.path.getsize(trace))
+    if any(c != {"nms_keep": 0, "auction": 3, "tracker_chunk": 0}
+           for c in calls):
+        raise SystemExit(f"debug launch counts {calls}")
+    if mism or not (dump_equal and states_equal) \
+            or min(matched) < N_PERSONS - 1:
+        raise SystemExit("debug: the card and the CPU disagree")
+    if not traced:
+        raise SystemExit("debug: torch_trace recorded no auction kernel")
+
+
 def kernel_label(mangled):
     """A kernel's mangled name -> nms_keep<dominance>, nms_keep<greedy,
     register words a lane>, auction, tracker_chunk<cv>,
@@ -3599,7 +4092,15 @@ def kernel_label(mangled):
     return mangled
 
 
-def main():
+def main(argv=None):
+    """No arguments: every phase. --only NAME[,NAME...]: the build, the
+    kernels phase, int8_calibration and the named later phases
+    (decode_variants, engine, aot, debug), then the last two lines."""
+    import argparse
+    ap = argparse.ArgumentParser(prog="chip_smoke.py")
+    ap.add_argument("--only", default="",
+                    help="comma-separated later phases to run alone")
+    only = set(filter(None, ap.parse_args(argv).only.split(",")))
     faulthandler.dump_traceback_later(LIMIT_S, exit=True)
     t0 = time.perf_counter()
     import torch
@@ -3641,6 +4142,10 @@ def main():
                           "assets")
     params, _ = load_params(os.path.join(
         assets, "yolov8n-pose-synthetic640.safetensors"))
+    if only:
+        qparams = phase_int8_calibration(t0, params)
+        later_phases(t0, params, qparams, rows, only)
+        return finish(rows, kind)
     phase_main_path(t0, params, rows)
     phase_cpu_vs_card(t0, params)
     phase_chunk_path(t0, params, rows)
@@ -3681,7 +4186,26 @@ def main():
     phase_train_reid(t0, assets)
     phase_parallel(t0, rows, params)
     phase_dp(t0)
+    later_phases(t0, params, qparams, rows)
+    return finish(rows, kind)
 
+
+def later_phases(t0, params, qparams, rows, only=None):
+    """The phases of the decode variants, the engine, the locked engine and
+    the debug hooks (all of them, or those named in `only`)."""
+    for name, run in (("decode_variants",
+                       lambda: phase_decode_variants(t0, params, rows)),
+                      ("engine",
+                       lambda: phase_engine(t0, params, qparams, rows)),
+                      ("aot", lambda: phase_aot(t0, params, qparams, rows)),
+                      ("debug", lambda: phase_debug(t0, rows))):
+        if not only or name in only:
+            run()
+
+
+def finish(rows, kind):
+    """The kernels line and the last line."""
+    import torch
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "rounds", "rounds_main_path",

@@ -12,6 +12,8 @@ __version__ = "0.1.0"
 
 from .core import (Detections, DetectorConfig, PipelineConfig,
                    TrackerConfig, TrackerState)
+from .tracker import get_active_tracks, tracker_step
 
 __all__ = ["TrackerConfig", "DetectorConfig", "PipelineConfig",
-           "Detections", "TrackerState", "__version__"]
+           "Detections", "TrackerState", "tracker_step",
+           "get_active_tracks", "__version__"]

@@ -20,11 +20,6 @@ import time
 
 import numpy as np
 
-# Where each refusal's missing piece is queued (ROADMAP.md, Queue 1).
-ROADMAP_DECODE = "ROADMAP Queue 1, 'Decode variants'"
-ROADMAP_ENGINE = "ROADMAP Queue 1, 'Engine and legacy NMS'"
-
-
 def build_parser():
     p = argparse.ArgumentParser(
         prog="posebyte_demo",
@@ -70,7 +65,9 @@ def build_parser():
                         "either package)")
     p.add_argument("--topk-impl", default="sort",
                    choices=["sort", "bisect", "approx"],
-                   help="decode candidate ranking (the port runs 'sort')")
+                   help="decode candidate ranking: sort, bisect "
+                        "(radix-select, the same candidates) or approx "
+                        "(exact off the TPU)")
     p.add_argument("--gather-impl", default="onehot",
                    choices=["index", "onehot"],
                    help="decode candidate-row extraction (equal values; "
@@ -95,12 +92,6 @@ def resolve(device):
         return resolve_device(device)
     except RuntimeError as e:
         raise SystemExit(str(e)) from e
-
-
-def refuse_topk(impl: str):
-    if impl != "sort":
-        raise SystemExit(f"--topk-impl {impl}: the port ranks candidates "
-                         f"by 'sort' only ({ROADMAP_DECODE})")
 
 
 def load_model_params(engine: str):
@@ -151,7 +142,6 @@ def track_frames(pipe, frames, width: int, height: int, chunk: int = 0):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    refuse_topk(args.topk_impl)
     device = resolve(args.device)
 
     from ..core.config import DetectorConfig, PipelineConfig, TrackerConfig

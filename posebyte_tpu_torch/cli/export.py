@@ -5,11 +5,14 @@ safetensors format, with int8 calibration, after posebyte_tpu/cli/export.py
 .safetensors), quantise and calibrate for int8, write the safetensors file
 (either package loads it), then run one forward on the device at (batch,
 size) and print its time, as the JAX package warms its compile cache.
+--aot PATH also writes the locked engine: the forward with the weights
+baked in, exported by torch.export for the device (models/aot.py; the JAX
+package writes StableHLO).
 
 Usage:
   python -m posebyte_tpu_torch.cli.export -m yolov8n-pose.pt \\
       -o out.safetensors [-p {fp32,bf16,int8}] [-b BATCH] [-c calib_dir] \\
-      [--device cpu]
+      [--aot engine.pt2] [--device cpu]
 """
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ import time
 
 
 def main(argv=None):
-    from .demo import ROADMAP_ENGINE, add_device_flag
+    from .demo import add_device_flag
     p = argparse.ArgumentParser(prog="export_engine")
     p.add_argument("-m", "--model", required=True,
                    help="Ultralytics .pt checkpoint or .safetensors")
@@ -51,13 +54,10 @@ def main(argv=None):
     p.add_argument("--no-compile", action="store_true",
                    help="skip the warm forward")
     p.add_argument("--aot", default="",
-                   help="a locked AOT engine (the JAX package's StableHLO "
-                        "export): not ported")
+                   help="also write a locked engine (torch.export, the "
+                        "weights baked in, for the device) to this path")
     add_device_flag(p)
     args = p.parse_args(argv)
-    if args.aot:
-        raise SystemExit(f"--aot: the port has no locked-engine export yet "
-                         f"({ROADMAP_ENGINE}, models/aot.py)")
 
     from .demo import load_model_params, resolve
     device = resolve(args.device)
@@ -84,6 +84,13 @@ def main(argv=None):
     size_mb = os.path.getsize(args.output) / 1e6
     print(f"[export] saved {name} ({precision}) -> {args.output} "
           f"({size_mb:.1f} MB)")
+
+    if args.aot:
+        from ..models.aot import export_engine_aot
+        dt = torch.float32 if precision == "fp32" else torch.bfloat16
+        size = export_engine_aot(params, name, args.aot, args.batch,
+                                 args.size, dt, device)
+        print(f"[export] AOT engine -> {args.aot} ({size / 1e6:.1f} MB)")
 
     if not args.no_compile:
         from ..models.layers import prepare_params

@@ -67,6 +67,22 @@ class TrackerConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class LegacyTrackerConfig:
+    """Legacy host-path tracker config (reference: types.h:135-155), the
+    JAX package's fields and defaults."""
+    high_thresh: float = 0.6
+    low_thresh: float = 0.1
+    new_track_thresh: float = 0.7
+    max_time_lost: int = 30
+    min_hits: int = 3
+    match_thresh: float = 0.8
+    iou_thresh: float = 0.3
+    accel_memory: float = 0.9
+    jerk_memory: float = 0.9
+    nms_thresh: float = 0.65
+
+
+@dataclasses.dataclass(frozen=True)
 class DetectorConfig:
     """Detection + postprocess configuration
     (reference: yolo_pose_engine.h:59-130, gpu_postprocess.cu:366-476)."""
@@ -77,13 +93,16 @@ class DetectorConfig:
     oks_threshold: float = 0.55     # NMS OKS
     max_candidates: int = 256       # pre-NMS top-k
     max_detections: int = C.DEFAULT_MAX_DETECTIONS
-    # Candidate ranking: "sort" (exact, stable ties) is the one ported.
+    # Candidate ranking (ops/topk.py): "sort" (a stable sort), "bisect"
+    # (radix-select, bit-identical) or "approx" (the TPU's approximate
+    # top-k in the JAX package; exact off the TPU, and in the port).
     topk_impl: str = "sort"
     # Candidate-row extraction. "index" and "onehot" give the same values;
     # the port always gathers by index.
     gather_impl: str = "onehot"
-    # Candidate selection after ("post") the pyramid-level concat; "tail"
-    # is not ported yet.
+    # Candidate selection after ("post") the pyramid-level concat, or per
+    # level before it ("tail", ops.decode.decode_topk_levels): the same
+    # Detections bit for bit.
     decode_fusion: str = "post"
     # Raw u8 letterbox with the BGR flip and /255 folded into the stem conv
     # (models.weights.fold_stem_preprocess).

@@ -3,12 +3,13 @@ parameter dict.
 
 Counterparts of posebyte_tpu/models/layers.py (conv2d, conv_block,
 dwconv_block, bottleneck, c2f, c3, c3k2, sppf, the C2PSA attention stage,
-upsample2x, the calibration recorder) and their initialisers (conv_init,
-dwconv_init, c2f_init, c3_init, c3k2_init, sppf_init, c2psa_init).
-Activations
-are NCHW tensors kept in channels_last memory, so cuDNN runs its NHWC
-kernels; weights are OIHW. BatchNorm is already fused into every conv.
-Padding is torch-style symmetric k//2.
+upsample2x, the calibration recorder; conv2d_s2d, conv_block_s2d and
+packed_stem, the JAX package's TPU lane layouts of the plain stem) and
+their initialisers (conv_init, dwconv_init, c2f_init, c3_init, c3k2_init,
+sppf_init, c2psa_init). Activations are NCHW tensors kept in
+channels_last memory, so cuDNN runs its NHWC kernels; weights are OIHW.
+BatchNorm is already fused into every conv. Padding is torch-style
+symmetric k//2.
 
 A checkpoint's conv comes in one of three flavours (the JAX conv2d's):
 float {w, b}; weight-only int8 {w int8, scale, b}; w8a8 {w int8, scale,
@@ -26,11 +27,17 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..ops.conv_int8 import conv_w8a8, conv_w8a8_depthwise, pack_weights
+from ..ops.conv_int8 import (conv_w8a8, conv_w8a8_depthwise, conv_w8a8_op,
+                             pack_weights)
 
 # Active calibration recorder (models/quant.py sets a CalibrationRecorder
 # while it runs the forward eagerly; None otherwise).
 _CALIBRATION_RECORDER = None
+# True while models/aot.py traces the forward with torch.export: the w8a8
+# convs then go through the registered operator posebyte::conv_w8a8
+# (ops.conv_int8.conv_w8a8_op), which the exported graph records, instead
+# of the ctypes launch.
+_EXPORTING = False
 
 
 class _EntropyHist:
@@ -161,8 +168,9 @@ def conv2d(p: dict, key: str, x: torch.Tensor, stride: int = 1,
     wq = p.get(key + ".wq")
     if wq is not None:
         k = round(wq.shape[1] ** 0.5)
-        return conv_w8a8(x, p[key + ".act_scale"], wq, p[key + ".dq"],
-                         p[key + ".b"], k, stride)
+        conv = conv_w8a8_op if _EXPORTING else conv_w8a8
+        return conv(x, p[key + ".act_scale"], wq, p[key + ".dq"],
+                    p[key + ".b"], k, stride)
     wdw = p.get(key + ".wdw")
     if wdw is not None:
         if groups != x.shape[1]:
@@ -178,6 +186,76 @@ def conv2d(p: dict, key: str, x: torch.Tensor, stride: int = 1,
 def conv_block(p: dict, key: str, x: torch.Tensor, stride: int = 1):
     """Conv + (folded) BN + SiLU: ultralytics `Conv`."""
     return F.silu(conv2d(p, key, x, stride))
+
+
+def _float_weights(p: dict, key: str) -> torch.Tensor:
+    w = p.get(key + ".w")
+    if w is None:
+        raise ValueError(f"{key}: a float (or weight-only int8) conv is "
+                         "needed here, not a w8a8 one")
+    return w
+
+
+def conv2d_s2d(p: dict, key: str, x: torch.Tensor) -> torch.Tensor:
+    """A 3x3 stride-2 conv (torch padding 1) in its exact space-to-depth
+    form, after posebyte_tpu/models/layers.py:155-199: each 2x2 pixel cell
+    of x [B, C, H, W] (H, W even) becomes 4C channels, ordered (py * 2 +
+    px) * C + c, and the 3x3 kernel a 2x2 stride-1 kernel over cells with
+    one cell of padding at the top and left (tap dy lands in cell row
+    y - 1, py = 1 for dy = 0, else row y, py = dy - 1; the same along x).
+    The same products and sums as conv2d(p, key, x, 2), which the JAX
+    package packs for the TPU's lanes; on float or weight-only int8
+    weights (prepare_params dequantised those)."""
+    w = _float_weights(p, key)                        # [O, C, 3, 3]
+    if w.shape[-2:] != (3, 3):
+        raise ValueError(f"{key}: conv2d_s2d needs a 3x3 kernel")
+    B, C, H, W = x.shape
+    O = w.shape[0]
+    x2 = x.reshape(B, C, H // 2, 2, W // 2, 2).permute(0, 3, 5, 1, 2, 4) \
+        .reshape(B, 4 * C, H // 2, W // 2)
+    w2 = w.new_zeros((O, 4 * C, 2, 2))
+    for dy in range(3):
+        cy, py = (0, 1) if dy == 0 else (1, dy - 1)
+        for dx in range(3):
+            cx, px = (0, 1) if dx == 0 else (1, dx - 1)
+            ch = (py * 2 + px) * C
+            w2[:, ch:ch + C, cy, cx] = w[:, :, dy, dx]
+    return F.conv2d(F.pad(x2, (1, 0, 1, 0)), w2, p[key + ".b"])
+
+
+def conv_block_s2d(p: dict, key: str, x: torch.Tensor) -> torch.Tensor:
+    """SiLU(conv2d_s2d): conv_block(p, key, x, 2) in its space-to-depth
+    form."""
+    return F.silu(conv2d_s2d(p, key, x))
+
+
+def packed_stem(p: dict, key0: str, key1: str, x: torch.Tensor,
+                pack: int) -> torch.Tensor:
+    """The first two stride-2 Conv + SiLU layers of `pack` frames at once,
+    after posebyte_tpu/models/layers.py:207-247: x [B, C, S, S] with B
+    divisible by pack -> [B, c1, S / 4, S / 4], equal to
+    conv_block(p, key1, conv_block(p, key0, x, 2), 2).
+
+    The JAX package puts P frames' channels side by side with
+    block-diagonal weights to fill the TPU's 128 lanes; here the same
+    packing is one grouped conv (groups = P, each group one frame's
+    channels and the conv's own weights), so no frame reads another's
+    channels and every output sums the products of its own frame: exact
+    per frame in float32, up to the convolution's order of summation.
+    Float stems only (int8 keeps the stem in float, PARTIAL_QUANT_SKIP).
+    The output is channels_last, as the plain stem's."""
+    B, C, S, _ = x.shape
+    P = pack
+    if B % P:
+        raise ValueError(f"packed_stem: batch {B} is not a multiple of {P}")
+    y = x.reshape(B // P, P * C, S, S)
+    for key in (key0, key1):
+        w = _float_weights(p, key)
+        y = F.silu(F.conv2d(y, w.repeat(P, 1, 1, 1), p[key + ".b"].repeat(P),
+                            stride=2, padding=w.shape[-1] // 2, groups=P))
+    c1 = y.shape[1] // P
+    return y.reshape(B, c1, *y.shape[2:]).contiguous(
+        memory_format=torch.channels_last)
 
 
 def dwconv_block(p: dict, key: str, x: torch.Tensor, stride: int = 1):

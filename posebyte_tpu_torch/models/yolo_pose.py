@@ -1,11 +1,14 @@
-"""YOLOv8-pose and YOLO11-pose forward to the undecoded head outputs,
-after posebyte_tpu/models/yolo_pose.py (ModelConfig, init_params and
-_head_init, the two backbones and necks, _head_level, forward_heads,
-make_anchors, _dfl).
+"""YOLOv8-pose and YOLO11-pose forward passes, after
+posebyte_tpu/models/yolo_pose.py (ModelConfig, init_params and
+_head_init, the two backbones and necks, _head_level, forward_head_maps,
+forward_heads, make_anchors_levels, make_anchors, _dfl, decode_dense,
+forward_raw and the build_model* closures).
 
 The head layout matches the JAX package: box logits [B, A, 64], class
 logits [B, A, 1], raw keypoints [B, A, 51], with A the row-major flatten of
-the three pyramid levels in stride order (8400 anchors at 640).
+the three pyramid levels in stride order (8400 anchors at 640);
+forward_head_maps gives them per level, unconcatenated. forward_raw gives
+the reference engine's dense tensor [B, 56, A].
 """
 from __future__ import annotations
 
@@ -153,9 +156,11 @@ def init_params(seed=0, name: str = "yolov8n-pose") -> dict:
     return p
 
 
+def _stem(p, x):
+    return L.conv_block(p, "b1", L.conv_block(p, "b0", x, 2), 2)
+
+
 def _backbone_neck_v8(p, x):
-    x = L.conv_block(p, "b0", x, 2)
-    x = L.conv_block(p, "b1", x, 2)
     x = L.c2f(p, "b2", x, True)
     x = L.conv_block(p, "b3", x, 2)
     p3 = L.c2f(p, "b4", x, True)
@@ -175,8 +180,6 @@ def _backbone_neck_v8(p, x):
 
 
 def _backbone_neck_v11(p, x):
-    x = L.conv_block(p, "b0", x, 2)
-    x = L.conv_block(p, "b1", x, 2)
     x = L.c3k2(p, "b2", x)
     x = L.conv_block(p, "b3", x, 2)
     p3 = L.c3k2(p, "b4", x)           # ch(512) wide, unlike v8's ch(256)
@@ -224,33 +227,72 @@ def _head_level(p, i, x, family):
         branch("cv4")
 
 
-def forward_heads(params: dict, x: torch.Tensor, family: str = "v8"):
-    """Input [B, S, S, 3] NHWC -> undecoded head outputs
-    (box_logits [B, A, 64], cls_logits [B, A, 1], kpt_raw [B, A, 51]),
-    computed in x's dtype. params: the port's flat dict of tensors;
-    family: "v8" or "v11" (ModelConfig.family)."""
+def forward_head_maps(params: dict, x: torch.Tensor, family: str = "v8",
+                      packed_stem: int = 0):
+    """Input [B, S, S, 3] NHWC -> the undecoded head maps per pyramid
+    level: a tuple of (box [B, A_l, 64], cls [B, A_l, 1], kpt [B, A_l, 51])
+    in stride order, A_l = H_l * W_l row-major, with no concatenation
+    across levels (the producer of ops.decode.decode_topk_levels).
+    Computed in x's dtype; params: prepare_params' tensors; family: "v8" or
+    "v11" (ModelConfig.family).
+
+    packed_stem=P > 1 runs the first two convs of P frames at once as one
+    grouped conv (layers.packed_stem) when B divides by P, and the plain
+    stem otherwise."""
     if family not in _BACKBONES:
         raise ValueError(f"unknown model family {family!r}")
     x = x.permute(0, 3, 1, 2)          # NCHW view of NHWC memory
+    if packed_stem > 1 and x.shape[0] % packed_stem == 0:
+        x = L.packed_stem(params, "b0", "b1", x, packed_stem)
+    else:
+        x = _stem(params, x)
     feats = _BACKBONES[family](params, x)
-    levels = [_head_level(params, i, f, family)
-              for i, f in enumerate(feats)]
+    return tuple(_head_level(params, i, f, family)
+                 for i, f in enumerate(feats))
+
+
+def forward_heads(params: dict, x: torch.Tensor, family: str = "v8",
+                  packed_stem: int = 0):
+    """Input [B, S, S, 3] NHWC -> undecoded head outputs
+    (box_logits [B, A, 64], cls_logits [B, A, 1], kpt_raw [B, A, 51]): the
+    concatenation of forward_head_maps over the levels."""
+    levels = forward_head_maps(params, x, family, packed_stem)
     return tuple(torch.cat([lv[j] for lv in levels], dim=1)
                  for j in range(3))
+
+
+@functools.lru_cache(maxsize=8)
+def make_anchors_levels(input_size: int = 640, strides=(8, 16, 32)):
+    """Per pyramid level, in stride order: (anchor centres [A_l, 2] in grid
+    units, strides [A_l]) as float32 numpy. Level l's anchors take the
+    global indices [offset_l, offset_l + A_l) of make_anchors."""
+    per = []
+    for s in strides:
+        n = input_size // s
+        xs = np.arange(n, dtype=np.float32) + 0.5
+        gy, gx = np.meshgrid(xs, xs, indexing="ij")
+        per.append((np.stack([gx.reshape(-1), gy.reshape(-1)], axis=-1),
+                    np.full((n * n,), s, np.float32)))
+    return tuple(per)
 
 
 @functools.lru_cache(maxsize=8)
 def make_anchors(input_size: int = 640, strides=(8, 16, 32)):
     """Anchor centres (grid units) and per-anchor stride, concatenated over
     levels: ([A, 2], [A]) float32 numpy."""
-    pts, strs = [], []
-    for s in strides:
-        n = input_size // s
-        xs = np.arange(n, dtype=np.float32) + 0.5
-        gy, gx = np.meshgrid(xs, xs, indexing="ij")
-        pts.append(np.stack([gx.reshape(-1), gy.reshape(-1)], axis=-1))
-        strs.append(np.full((n * n,), s, np.float32))
-    return np.concatenate(pts, 0), np.concatenate(strs, 0)
+    per = make_anchors_levels(input_size, strides)
+    return (np.concatenate([p for p, _ in per], 0),
+            np.concatenate([s for _, s in per], 0))
+
+
+@functools.lru_cache(maxsize=8)
+def anchor_tensors(input_size: int, device: torch.device):
+    """make_anchors' arrays as float32 tensors on `device`, made once per
+    size and device (a copy from host memory each call would wait for the
+    device's queue)."""
+    anchors, strides = make_anchors(input_size)
+    return (torch.from_numpy(anchors).to(device),
+            torch.from_numpy(strides).to(device))
 
 
 def _dfl(box_logits: torch.Tensor) -> torch.Tensor:
@@ -260,3 +302,77 @@ def _dfl(box_logits: torch.Tensor) -> torch.Tensor:
     bins = torch.arange(REG_MAX, dtype=torch.float32,
                         device=box_logits.device)
     return (prob * bins).sum(dim=-1)
+
+
+def decode_dense(box: torch.Tensor, cls: torch.Tensor, kpt: torch.Tensor,
+                 input_size: int) -> torch.Tensor:
+    """Every anchor decoded -> [B, 56, A] float32, the reference engine's
+    output tensor: rows 0-3 the box cxcywh in input pixels
+    (ultralytics dist2bbox(xywh=True)), row 4 the sigmoid confidence, rows
+    5-55 the 17 keypoints (x, y in input pixels, sigmoid confidence)."""
+    anchors, strides = anchor_tensors(input_size, box.device)  # [A, 2], [A]
+    B, A = box.shape[:2]
+    d = _dfl(box.reshape(B, A, 4, REG_MAX))                     # [B, A, 4]
+    x1y1 = anchors - d[..., :2]
+    x2y2 = anchors + d[..., 2:]
+    cxy = (x1y1 + x2y2) * 0.5 * strides[:, None]
+    wh = (x2y2 - x1y1) * strides[:, None]
+    conf = torch.sigmoid(cls.float())                           # [B, A, 1]
+    k3 = kpt.reshape(B, A, 17, 3).float()
+    kxy = (k3[..., :2] * 2.0 + (anchors[:, None, :] - 0.5)) \
+        * strides[:, None, None]
+    kdec = torch.cat([kxy, torch.sigmoid(k3[..., 2:3])], dim=-1) \
+        .reshape(B, A, NK)
+    out = torch.cat([cxy, wh, conf, kdec], dim=-1)              # [B, A, 56]
+    return out.transpose(1, 2)                                  # [B, 56, A]
+
+
+def forward_raw(params: dict, x: torch.Tensor, family: str = "v8"):
+    """Input [B, S, S, 3] NHWC -> the dense output [B, 56, A] (decode_dense
+    of forward_heads), the reference engine's tensor layout."""
+    box, cls, kpt = forward_heads(params, x, family)
+    return decode_dense(box, cls, kpt, x.shape[1])
+
+
+def build_model_heads(name: str = "yolov8n-pose", dtype=torch.float32,
+                      packed_stem: int = 0):
+    """(heads_fn, init_fn): heads_fn(params, images_nhwc) -> forward_heads
+    in `dtype`, params prepare_params' tensors (the hot path feeding
+    ops.decode.decode_topk); init_fn(seed) -> init_params(seed, name).
+    packed_stem: layers.packed_stem's P, where the batch divides by it."""
+    family = MODEL_CONFIGS[name].family
+
+    def heads_fn(params, x):
+        return forward_heads(params, x.to(dtype), family, packed_stem)
+
+    def init_fn(seed=0):
+        return init_params(seed, name)
+
+    return heads_fn, init_fn
+
+
+def build_model_head_maps(name: str = "yolov8n-pose", dtype=torch.float32,
+                          packed_stem: int = 0):
+    """head_maps_fn(params, images_nhwc) -> forward_head_maps in `dtype`,
+    for the tail-fused decode (DetectorConfig.decode_fusion="tail")."""
+    family = MODEL_CONFIGS[name].family
+
+    def head_maps_fn(params, x):
+        return forward_head_maps(params, x.to(dtype), family, packed_stem)
+
+    return head_maps_fn
+
+
+def build_model(name: str = "yolov8n-pose", dtype=torch.float32):
+    """(apply_fn, init_fn): apply_fn(params, images_nhwc) -> forward_raw's
+    [B, 56, A], computed in `dtype` (the decode in float32), params
+    prepare_params' tensors; init_fn(seed) -> init_params(seed, name)."""
+    family = MODEL_CONFIGS[name].family
+
+    def apply_fn(params, x):
+        return forward_raw(params, x.to(dtype), family)
+
+    def init_fn(seed=0):
+        return init_params(seed, name)
+
+    return apply_fn, init_fn

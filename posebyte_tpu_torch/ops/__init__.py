@@ -6,11 +6,13 @@ here)."""
 from .assignment import (auction, auction_assign, auction_assign_cuda,
                          auction_iterations, filter_matches_by_threshold,
                          greedy_assign)
-from .decode import decode_topk
+from .decode import (decode_topk, decode_topk_levels, decode_yolo_output,
+                     decode_yolo_output_batch)
 from .gating import spatial_gate
 from .geometry import (boxes_iou_matrix, centers_iou_matrix,
                        masked_pose_bbox, pose_area, pose_centers)
 from .kalman import Kalman136, cv_predict, cv_update
+from .legacy_nms import legacy_oks_pair_matrix, legacy_pose_nms
 from .nms import (nms_keep, nms_keep_cuda, nms_keep_plain,
                   nms_overlap_matrix, pose_nms)
 from .oks import (combine_costs, oks_distance_matrix, oks_matrix,
@@ -25,6 +27,8 @@ from .tracker_chunk import tracker_chunk_cuda, tracker_chunk_plain
 __all__ = [
     "auction", "auction_assign", "auction_assign_cuda", "auction_iterations",
     "filter_matches_by_threshold", "greedy_assign", "decode_topk",
+    "decode_topk_levels", "decode_yolo_output", "decode_yolo_output_batch",
+    "legacy_pose_nms", "legacy_oks_pair_matrix",
     "spatial_gate", "boxes_iou_matrix", "centers_iou_matrix",
     "masked_pose_bbox", "pose_area", "pose_centers", "Kalman136",
     "cv_predict", "cv_update", "nms_keep", "nms_keep_cuda",

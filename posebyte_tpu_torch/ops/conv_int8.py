@@ -26,6 +26,8 @@ and running its plain version for a CPU tensor:
   conv_int8_plain, the JAX branch's arithmetic.
 - conv_int8(xq, ...) takes the quantised, channel-padded int8 activation
   (conv3x3_int8_pallas's contract).
+conv_w8a8_op registers conv_w8a8 as the operator posebyte::conv_w8a8, for
+the programs models/aot.py exports.
 YOLO11's depthwise w8a8 convs (the JAX package's feature_group_count = C
 int8 conv, plain XLA and no Pallas kernel) have no Kernel 4 mode:
 conv_w8a8_depthwise runs them as a float32 depthwise conv of the
@@ -294,6 +296,31 @@ def conv_w8a8(x: torch.Tensor, s_x: torch.Tensor, w_packed: torch.Tensor,
                 out_dtype or x.dtype)
     return conv_w8a8_plain(x, s_x, w_packed, scale, bias, k, stride,
                            out_dtype)
+
+
+@torch.library.custom_op("posebyte::conv_w8a8", mutates_args=())
+def conv_w8a8_op(x: torch.Tensor, s_x: torch.Tensor, w_packed: torch.Tensor,
+                 scale: torch.Tensor, bias: torch.Tensor, k: int,
+                 stride: int) -> torch.Tensor:
+    """conv_w8a8 as the operator torch.ops.posebyte.conv_w8a8, which
+    torch.export records in a graph as one node (a ctypes launch cannot be
+    traced): Kernel 4 for a CUDA tensor, the plain version for a CPU
+    tensor, through the dispatcher. models/aot.py's exported program calls
+    it; the eager forward calls conv_w8a8 directly. A graph may hand it an
+    activation in another layout than the eager forward's; that one is
+    copied to channels_last first, which Kernel 4 reads. Registering it
+    builds nothing and touches no device."""
+    if x.is_cuda and pixel_stride(x) is None:
+        x = x.contiguous(memory_format=torch.channels_last)
+    return conv_w8a8(x, s_x, w_packed, scale, bias, k, stride)
+
+
+@conv_w8a8_op.register_fake
+def _(x, s_x, w_packed, scale, bias, k, stride):
+    B, _, H, W = x.shape
+    return x.new_empty((B, scale.shape[0], _out_size(H, k, stride),
+                        _out_size(W, k, stride))).contiguous(
+        memory_format=torch.channels_last)
 
 
 def conv_int8(xq: torch.Tensor, w_packed: torch.Tensor, scale: torch.Tensor,

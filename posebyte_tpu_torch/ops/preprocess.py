@@ -25,6 +25,11 @@ Both give the same values in either of two modes:
   values, LETTERBOX_PAD_VALUE padding. The matmul lowering folds the 1/255
   into its row matrix; the selection lowering flips the u8 content and
   multiplies by float32(1/255) after the convert.
+Not ported, as not applicable: the JAX module's batch1_selection_override
+reads an environment variable that switches the per-frame sites to the
+selection lowering for TPU A/B probes; here each path has one route.
+Likewise ingest_retile_override, which picks between two TPU lowerings of
+the selection path's retile; the port's selection is one strided view.
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """The pose pipeline (per frame and per chunk), the multi-stream servers and
 their TCP front end."""
-from .runner import Detector, PosePipeline
+from .runner import Detector, PosePipeline, detect_fn
 
 
 def __getattr__(name):
@@ -15,5 +15,6 @@ def __getattr__(name):
     raise AttributeError(name)
 
 
-__all__ = ["PosePipeline", "Detector", "StreamServer", "ChunkedStreamServer",
+__all__ = ["PosePipeline", "Detector", "detect_fn", "StreamServer",
+           "ChunkedStreamServer",
            "PoseServingFrontend", "PoseClient"]

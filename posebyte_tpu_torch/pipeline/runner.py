@@ -19,7 +19,13 @@ reid_params are given) and hand it to the tracker.
 Both paths, and both stream servers (pipeline/serving.py), run one
 detector front end, Detector: the model on the raw letterbox (stem folded)
 or, with raw_preproc=False, on the normalised one, or an injected heads_fn
-such as the oracle of models/oracle.py.
+such as the oracle of models/oracle.py. With
+config.detector.decode_fusion="tail" the model's candidates are chosen per
+pyramid level (forward_head_maps, decode_topk_levels; runner.py:39-70,
+:111-114 of the JAX package), with Detections equal to "post"'s bit for
+bit; an injected heads_fn has no per-level maps and runs "post".
+detect_fn and detect_fn_levels are the single-image detect of either
+decode.
 Everything from the frames' bytes to the per-detection track outputs runs
 on the pipeline's device; the host copies frames in and, in fetch_outputs
 or fetch_chunk_outputs, the small output tensors out. PyTorch runs
@@ -39,9 +45,9 @@ from ..core.device import resolve_device, set_numeric_settings
 from ..core.structs import Detections, TrackerState
 from ..models.layers import prepare_params
 from ..models.weights import fold_stem_preprocess
-from ..models.yolo_pose import (MODEL_CONFIGS, forward_heads, init_params,
-                                make_anchors)
-from ..ops.decode import decode_topk
+from ..models.yolo_pose import (MODEL_CONFIGS, forward_head_maps,
+                                forward_heads, init_params, make_anchors)
+from ..ops.decode import decode_topk, decode_topk_levels
 from ..ops.nms import MAX_N as NMS_MAX_N, pose_nms
 from ..ops.preprocess import letterbox_flat_nhwc, letterbox_params
 from ..ops.reid import make_embed_fn
@@ -77,6 +83,46 @@ def frame_tracks(ids, scores, poses, boxes, emit, frame_w: int,
                                    score=float(scores[d]),
                                    bbox=bb, keypoints=kp))
     return results
+
+
+def _decode(det_cfg, box, cls, kpt) -> Detections:
+    return decode_topk(box, cls, kpt, det_cfg.conf_threshold,
+                       det_cfg.max_candidates, det_cfg.input_size,
+                       topk_impl=det_cfg.topk_impl,
+                       gather_impl=det_cfg.gather_impl)
+
+
+def _decode_levels(det_cfg, levels) -> Detections:
+    return decode_topk_levels(levels, det_cfg.conf_threshold,
+                              det_cfg.max_candidates, det_cfg.input_size,
+                              topk_impl=det_cfg.topk_impl,
+                              gather_impl=det_cfg.gather_impl)
+
+
+def _nms(det_cfg, det: Detections) -> Detections:
+    return pose_nms(det, det_cfg.iou_threshold, det_cfg.oks_threshold,
+                    det_cfg.max_detections, presorted=True)
+
+
+def detect_fn(params, image_hwc: torch.Tensor, det_cfg, heads_fn
+              ) -> Detections:
+    """Single-image detect: [S, S, 3] input -> pose-NMS'd Detections
+    (reference: detectGPUNative, yolo_pose_engine.cpp:610-646): heads_fn
+    (params, images_nhwc) -> (box, cls, kpt) on a batch of one, the sparse
+    decode, pose_nms (Kernel 1 on the card)."""
+    box, cls, kpt = heads_fn(params, image_hwc[None])
+    return _nms(det_cfg, _decode(det_cfg, box[0], cls[0], kpt[0]))
+
+
+def detect_fn_levels(params, image_hwc: torch.Tensor, det_cfg,
+                     head_maps_fn) -> Detections:
+    """Single-image detect through the tail-fused decode: head_maps_fn
+    (params, images_nhwc) -> per-level maps (models.build_model_head_maps),
+    decode_topk_levels, pose_nms. The Detections equal detect_fn's bit for
+    bit."""
+    maps = head_maps_fn(params, image_hwc[None])
+    levels = tuple((b[0], c[0], k[0]) for b, c, k in maps)
+    return _nms(det_cfg, _decode_levels(det_cfg, levels))
 
 
 def model_params(config: PipelineConfig, params: dict | None, heads_fn,
@@ -121,8 +167,6 @@ class Detector:
         if config.precision not in _DTYPES:
             raise NotImplementedError(
                 f"precision {config.precision!r} is not ported")
-        if config.detector.decode_fusion != "post":
-            raise NotImplementedError("the port runs decode_fusion='post'")
         if heads_fn is not None and config.detector.raw_preproc:
             config = dataclasses.replace(config, detector=dataclasses.replace(
                 config.detector, raw_preproc=False))
@@ -142,11 +186,14 @@ class Detector:
                 params = fold_stem_preprocess(params)
             self.params = prepare_params(params, self.dtype, self.device)
             self.heads = self._model_heads
+            self.head_maps = self._model_head_maps \
+                if det_cfg.decode_fusion == "tail" else None
         else:
             self.family = None
             self.params = {k: torch.as_tensor(v).to(self.device)
                            for k, v in params.items()}
             self.heads = heads_fn
+            self.head_maps = None       # no per-level maps: "post"
         self.reid_params = None if reid_params is None else {
             k: torch.as_tensor(np.asarray(v, np.float32)).to(self.device)
             for k, v in reid_params.items()}
@@ -157,6 +204,9 @@ class Detector:
 
     def _model_heads(self, params, imgs: torch.Tensor):
         return forward_heads(params, imgs.to(self.dtype), self.family)
+
+    def _model_head_maps(self, params, imgs: torch.Tensor):
+        return forward_head_maps(params, imgs.to(self.dtype), self.family)
 
     def __call__(self, frames_flat: torch.Tensor, h: int, w: int,
                  selection: bool):
@@ -179,15 +229,17 @@ class Detector:
                                        selection=selection,
                                        raw=det_cfg.raw_preproc)
         with record_function("model"):
-            box, cls, kpt = self.heads(self.params, imgs)
+            if self.head_maps is not None:
+                heads = self.head_maps(self.params, imgs)
+            else:
+                heads = self.heads(self.params, imgs)
         with record_function("decode"):
-            det = decode_topk(box, cls, kpt, det_cfg.conf_threshold,
-                              det_cfg.max_candidates, det_cfg.input_size,
-                              topk_impl=det_cfg.topk_impl)
+            if self.head_maps is not None:
+                det = _decode_levels(det_cfg, heads)
+            else:
+                det = _decode(det_cfg, *heads)
         with record_function("nms"):
-            det = pose_nms(det, det_cfg.iou_threshold,
-                           det_cfg.oks_threshold, det_cfg.max_detections,
-                           presorted=True)
+            det = _nms(det_cfg, det)
         if self.embed is None:
             return det, None
         with record_function("reid"):

@@ -38,6 +38,9 @@ lines, every number per frame:
 Device numbers come only from the profiler's CUDA activity; where it
 records none they print as null ("not measured").
 
+torch_trace(logdir) is the JAX package's jax_trace: a torch.profiler
+context that writes a Chrome/Perfetto trace.
+
 Beside main, the JAX package's diagnostic helpers (its
 utils/profiling.py:29-214), which the command line calls:
 profile_tracker_stages (benchmark --stages) times each tracker stage as a
@@ -119,6 +122,34 @@ class TrackerTiming:
         print("  " + "-" * 29)
         print(f"  {'TOTAL':13s} {self.total_us / n:8.2f} us/frame "
               f"({1e6 * n / max(self.total_us, 1e-9):.1f} FPS potential)")
+
+
+@contextlib.contextmanager
+def torch_trace(logdir: str | None = None):
+    """An operation-level trace of the code run inside the context, the
+    counterpart of the JAX package's jax_trace (its utils/profiling.py:217):
+    torch.profiler with CPU activity, and CUDA activity when a card is
+    present, written on exit as a Chrome/Perfetto trace to
+    `logdir`/trace.json (logdir defaults to posebyte_trace under the
+    temporary directory). Yields the trace file's path.
+
+    The kernels the port launches through ctypes (Kernels 1-4) appear in
+    the trace by their names and never inside a stage range
+    (record_function): read them by name, and Kernel 3's stages by its
+    stage clock (ops.tracker_chunk.read_stage_clock)."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    logdir = logdir or os.path.join(tempfile.gettempdir(), "posebyte_trace")
+    os.makedirs(logdir, exist_ok=True)
+    path = os.path.join(logdir, "trace.json")
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield path
+    prof.export_chrome_trace(path)
 
 
 def profile_tracker_stages(state, det, config, iters: int = 20

@@ -5,9 +5,9 @@ yolov8n-pose at 256 from assets/, fp32, -v: the per-frame ids equal to
 posebyte_tpu.cli.demo's, the chunked ids (--chunk 8) equal to the
 per-frame ones, and a --save-state file of either package resumed by the
 other with the same ids; the benchmark's JSON keys; a bare model name on
-random weights in every CLI; and the refusals (no card without --device
-cpu, and each flag value the port cannot honour, naming its ROADMAP
-item).
+random weights in every CLI; the refusal without a card and without
+--device cpu; and the flag values the port once refused (--topk-impl
+bisect and approx, export --aot), run.
 
 The JAX package's load_params builds its tree with init_params, whose
 random initialisation is replaced here by jax.eval_shape (every leaf is
@@ -162,22 +162,31 @@ def test_no_card_and_no_device_cpu_fails(cli):
         main(argv)
 
 
-@pytest.mark.parametrize("cli,argv,item", [
-    ("demo", ["-e", ASSET, "-i", "x.mp4", "--topk-impl", "bisect"],
-     "Decode variants"),
-    ("demo", ["-e", ASSET, "-i", "x.mp4", "--topk-impl", "approx"],
-     "Decode variants"),
-    ("export", ["-m", ASSET, "-o", "x.safetensors", "--aot", "e.hlo"],
-     "Engine and legacy NMS"),
+@pytest.mark.parametrize("cli,argv", [
+    ("demo", ["--topk-impl", "bisect"]),
+    ("demo", ["--topk-impl", "approx"]),
+    ("export", ["--aot", "e.pt2"]),
 ], ids=["bisect", "approx", "aot"])
-def test_unsupported_flags_name_their_roadmap_item(cli, argv, item, tmp_path,
-                                                   monkeypatch):
+def test_unsupported_flags_name_their_roadmap_item(cli, argv, clip, tmp_path,
+                                                   monkeypatch, capsys):
+    """The flag values the port once refused, naming their ROADMAP items,
+    now run on the CPU: the demo's --topk-impl bisect and approx give the
+    per-frame ids of the default ranking (sort) on the clip, and export's
+    --aot writes a locked engine that models.aot loads."""
     monkeypatch.chdir(tmp_path)
-    if cli == "evaluate":
-        np.savez("gt.npz", poses=np.zeros((1, 1, 17, 3), np.float32))
-    with pytest.raises(SystemExit, match=f"ROADMAP Queue 1, '{item}"):
-        CLIS[cli][0](argv)
-    assert not os.path.exists("x.safetensors")
+    if cli == "demo":
+        args = BASE + ["-i", clip, "--device", "cpu"]
+        ids = _ids(_run(demo.main, args + argv, capsys))
+        assert len(ids) == N_FRAMES and max(map(len, ids)) >= 4
+        assert ids == _ids(_run(demo.main, args, capsys))
+        return
+    from posebyte_tpu_torch.models.aot import load_engine_aot
+    out = _run(export.main, ["-m", ASSET, "-o", "x.safetensors", "--size",
+                             "64", "--no-compile", "--device", "cpu"] + argv,
+               capsys)
+    assert "AOT engine -> e.pt2" in out
+    assert load_engine_aot("e.pt2", device="cpu")(
+        torch.zeros((1, 64, 64, 3))).shape == (1, 56, 84)
 
 
 @pytest.mark.parametrize("cli", list(CLIS))

@@ -1042,3 +1042,183 @@ def test_depthwise_w8a8_route_matches_plain_on_card(card, dtype, C, H):
     assert got.dtype == dtype and got.is_cuda
     assert torch.equal(got.float().view(torch.int32),
                        want.float().view(torch.int32))
+
+
+ASSET256 = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "assets", "yolov8n-pose-synthetic256.safetensors")
+
+
+def test_decode_variants_card_equal(card):
+    """On the card every topk_impl and gather_impl gives the sort / index
+    decode bit for bit, and decode_topk_levels the concatenated decode."""
+    from posebyte_tpu_torch.ops import decode as D
+    rng = np.random.default_rng(3)
+    sizes = [(256 // s) ** 2 for s in (8, 16, 32)]
+    levels = tuple(tuple(torch.from_numpy(rng.normal(m, s, (4, a, c)).astype(
+        np.float32)).to(card, torch.bfloat16) for m, s, c in
+        ((0, 1, 64), (-2, 2, 1), (0, 1, 51))) for a in sizes)
+    cat = [torch.cat([lv[j] for lv in levels], dim=1) for j in range(3)]
+    ref = D.decode_topk(*cat, 0.25, 256, 256)
+    for ti in ("sort", "bisect", "approx"):
+        for gi in ("index", "onehot"):
+            for got in (D.decode_topk(*cat, 0.25, 256, 256, topk_impl=ti,
+                                      gather_impl=gi),
+                        D.decode_topk_levels(levels, 0.25, 256, 256,
+                                             topk_impl=ti, gather_impl=gi)):
+                for f in ("poses", "boxes", "scores", "valid"):
+                    assert torch.equal(getattr(got, f), getattr(ref, f)), \
+                        (ti, gi, f)
+
+
+def test_tail_pipeline_card_matches_post_and_cpu(card):
+    """decode_fusion="tail" on the card: per chunk and per frame equal to
+    "post" bit for bit, Kernels 1 and 3 (chunk) and 1 and 2 (frame)
+    launched as on the post path, and the CPU's ids (fp32)."""
+    import dataclasses
+    from posebyte_tpu_torch.core import DetectorConfig, PipelineConfig
+    from posebyte_tpu_torch.models import load_params
+    from posebyte_tpu_torch.ops import tracker_chunk as TC
+    from posebyte_tpu_torch.pipeline import PosePipeline
+    from posebyte_tpu_torch.utils.synthetic import SyntheticScene, \
+        render_frame
+    post = PipelineConfig(detector=DetectorConfig(input_size=256,
+                                                  num_anchors=1344),
+                          precision="fp32")
+    tail = dataclasses.replace(post, detector=dataclasses.replace(
+        post.detector, decode_fusion="tail", topk_impl="bisect"))
+    params = load_params(ASSET256)[0]
+    scene = SyntheticScene(4, 1280, 720, seed=11)
+    frames = np.stack([render_frame(scene.step(), 1280, 720)
+                       for _ in range(6)])
+    kernels = (N.nms_keep_cuda, A.auction_assign_cuda, TC.tracker_chunk_cuda)
+    outs = {}
+    for name, cfg, dev in (("post", post, card), ("tail", tail, card),
+                           ("cpu", tail, "cpu")):
+        pipe = PosePipeline(cfg, params, device=dev)
+        before = [k.launches for k in kernels]
+        chunk = pipe.process_chunk(frames)
+        pipe.reset()
+        frame = [pipe.process_frame(f) for f in frames[:3]]
+        if dev != "cpu":
+            assert [k.launches - b for k, b in zip(kernels, before)] == \
+                [1 + 3, 3 * 3, 1]
+        outs[name] = (chunk, frame)
+    for a, b in zip([outs["post"][0]] + outs["post"][1],
+                    [outs["tail"][0]] + outs["tail"][1]):
+        for k in ("ids", "scores", "poses", "boxes", "emit", "num_active"):
+            assert torch.equal(a[k], b[k]), k
+    assert torch.equal(outs["tail"][0]["ids"].cpu(), outs["cpu"][0]["ids"])
+    assert (outs["cpu"][0]["ids"] >= 0).any()
+
+
+def test_engine_card_matches_cpu(card):
+    """YoloPoseEngine at fp32: detect_device_native (Kernel 1, one launch)
+    and detect_batch (the legacy NMS, no kernel) on the card against the
+    CPU: validity equal, keypoints within 1e-2 px."""
+    from posebyte_tpu_torch.core import DetectorConfig
+    from posebyte_tpu_torch.models import load_params
+    from posebyte_tpu_torch.models.engine import YoloPoseEngine
+    from posebyte_tpu_torch.utils.synthetic import SyntheticScene, \
+        render_frame
+    cfg = DetectorConfig(input_size=256, num_anchors=1344)
+    params = load_params(ASSET256)[0]
+    engs = [YoloPoseEngine(config=cfg, params=params, precision="fp32",
+                           device=d) for d in ("cpu", card)]
+    frames = np.stack([render_frame(p, 1280, 720) for p in
+                       (SyntheticScene(4, 1280, 720, seed=2).step(),
+                        SyntheticScene(3, 1280, 720, seed=3).step())])
+    before = N.nms_keep_cuda.launches
+    dets = [e.detect_device_native(torch.from_numpy(
+        frames[0].reshape(-1)).to(e.device), 720, 1280) for e in engs]
+    assert N.nms_keep_cuda.launches - before == 1
+    assert torch.equal(dets[0].valid, dets[1].valid.cpu())
+    assert int(dets[0].valid.sum()) >= 3
+    torch.testing.assert_close(dets[1].poses.cpu(), dets[0].poses, rtol=0,
+                               atol=1e-2)
+    a, b = (e.detect_batch(frames) for e in engs)
+    for x, y in zip(a, b):
+        assert len(x) == len(y) >= 3
+        for p, q in zip(x, y):
+            np.testing.assert_allclose(p["keypoints"], q["keypoints"],
+                                       atol=1e-2)
+
+
+def test_aot_int8_launches_kernel4(card, tmp_path):
+    """The int8 (w8a8) locked engine on the card: one run launches Kernel 4
+    59 times (its plain version never) and equals the eager int8 forward
+    bit for bit; the float engine equals eager forward_raw."""
+    from posebyte_tpu_torch.models import load_params
+    from posebyte_tpu_torch.models import quant as Q
+    from posebyte_tpu_torch.models.aot import export_engine_aot, \
+        load_engine_aot
+    from posebyte_tpu_torch.models.layers import prepare_params
+    from posebyte_tpu_torch.models.yolo_pose import build_model
+    from posebyte_tpu_torch.ops import conv_int8 as CI
+    from posebyte_tpu_torch.utils.synthetic import calibration_frames
+    params = load_params(ASSET256)[0]
+    qparams = Q.calibrate_activations(Q.quantize_params(params),
+                                      "yolov8n-pose",
+                                      calibration_frames(8, 256, seed=1),
+                                      device="cpu")
+    x = torch.from_numpy(calibration_frames(2, 256, seed=2)).to(card)
+    for p, dtype in ((params, torch.float32), (qparams, torch.bfloat16)):
+        path = str(tmp_path / "e.pt2")
+        export_engine_aot(p, "yolov8n-pose", path, batch=2, input_size=256,
+                          dtype=dtype)
+        run = load_engine_aot(path)
+        plain = CI.conv_w8a8_plain
+        CI.conv_w8a8_plain = None                # never on the card
+        try:
+            before = CI.conv_int8_cuda.launches
+            got = run(x)
+            n = CI.conv_int8_cuda.launches - before
+        finally:
+            CI.conv_w8a8_plain = plain
+        apply_fn, _ = build_model("yolov8n-pose", dtype)
+        with torch.inference_mode():
+            want = apply_fn(prepare_params(p, dtype, card), x)
+        assert n == (59 if dtype == torch.bfloat16 else 0)
+        assert torch.equal(got, want)
+
+
+def test_debug_card_matches_cpu(card):
+    """tracker_step_debug on the card (its tiers through Kernel 2, three
+    launches) against the CPU on the same state: assignments equal, costs
+    within 1e-6."""
+    from posebyte_tpu_torch.core.config import TrackerConfig
+    from posebyte_tpu_torch.core.structs import Detections, TrackerState
+    from posebyte_tpu_torch.tracker import tracker_step
+    from posebyte_tpu_torch.tracker.debug import tracker_step_debug
+    from posebyte_tpu_torch.utils.synthetic import SyntheticScene
+    cfg = TrackerConfig(max_tracks=32, max_detections=16)
+    scene = SyntheticScene(6, 1280, 720, seed=4)
+
+    def det(dev):
+        P = np.zeros((16, 17, 3), np.float32)
+        P[:6] = gt
+        B = np.zeros((16, 4), np.float32)
+        B[:6] = np.stack([gt[..., 0].min(1), gt[..., 1].min(1),
+                          gt[..., 0].max(1), gt[..., 1].max(1)], -1)
+        S = np.zeros((16,), np.float32)
+        S[:6] = 0.9
+        return Detections(*(torch.from_numpy(a).to(dev) for a in
+                            (P, B, S, np.arange(16) < 6)))
+
+    state = TrackerState.init(32, 16)
+    for _ in range(4):
+        gt = scene.step()
+        state, _ = tracker_step(state, det("cpu"), cfg)
+    gt = scene.step()
+    want = tracker_step_debug(state, det("cpu"), cfg)
+    before = A.auction_assign_cuda.launches
+    import dataclasses
+    on_card = TrackerState(**{f.name: getattr(state, f.name).to(card)
+                              for f in dataclasses.fields(state)})
+    got = tracker_step_debug(on_card, det(card), cfg)
+    assert A.auction_assign_cuda.launches - before == 3
+    for k, v in want.items():
+        if k.startswith(("row_", "col_")) or v.dtype == bool:
+            np.testing.assert_array_equal(got[k], v, k)
+        else:
+            np.testing.assert_allclose(got[k], v, rtol=1e-6, atol=1e-6)
+    assert (got["row_assign_final"] >= 0).sum() == 6

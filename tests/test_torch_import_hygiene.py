@@ -1,7 +1,9 @@
 """Importing posebyte_tpu_torch must stay light (mirrors
 tests/test_import_hygiene.py): no JAX, no optax, no JAX package, no
 safetensors, no cv2, no triton; no CUDA context, no process group; no
-kernel build and no native build. Run in a fresh interpreter, since this
+kernel build and no native build. The operator posebyte::conv_w8a8, which
+an exported engine calls (models/aot.py), is registered by the import,
+with the same conditions. Run in a fresh interpreter, since this
 test process has imported JAX already.
 
 cv2 is absent on the card's host: a module-level `import cv2` is forbidden
@@ -40,8 +42,14 @@ def test_port_import_is_light(tmp_path):
         " posebyte_tpu_torch.parallel, posebyte_tpu_torch.parallel.train,"
         " posebyte_tpu_torch.parallel.sharding,"
         " posebyte_tpu_torch.scripts.train_synthetic,"
-        " posebyte_tpu_torch.scripts.train_reid;"
+        " posebyte_tpu_torch.scripts.train_reid,"
+        " posebyte_tpu_torch.models.engine, posebyte_tpu_torch.models.aot,"
+        " posebyte_tpu_torch.ops.legacy_nms, posebyte_tpu_torch.ops.topk,"
+        " posebyte_tpu_torch.tracker.debug;"
         "import torch.distributed as dist;"
+        "assert hasattr(torch.ops.posebyte, 'conv_w8a8');"
+        "assert posebyte_tpu_torch.models.YoloPoseEngine.__name__"
+        " == 'YoloPoseEngine';"
         "bad = [m for m in ('jax', 'flax', 'optax', 'posebyte_tpu',"
         " 'safetensors', 'cv2', 'triton') if m in sys.modules];"
         "assert not bad, bad;"
@@ -62,7 +70,10 @@ def test_port_import_is_light(tmp_path):
     "posebyte_tpu_torch.ops.tracker_chunk", "posebyte_tpu_torch.cli.demo",
     "posebyte_tpu_torch.parallel", "posebyte_tpu_torch.parallel.train",
     "posebyte_tpu_torch.scripts.train_synthetic",
-    "posebyte_tpu_torch.scripts.train_reid"])
+    "posebyte_tpu_torch.scripts.train_reid",
+    "posebyte_tpu_torch.models.engine", "posebyte_tpu_torch.models.aot",
+    "posebyte_tpu_torch.ops.legacy_nms", "posebyte_tpu_torch.tracker.debug",
+    "posebyte_tpu_torch.ops.decode"])
 def test_module_imports_first(module):
     """Each module imports in a fresh interpreter before any other part of
     the port (tracker.step imports ops, whose package imports

@@ -119,3 +119,127 @@ def test_forward_heads_matches(jax_params, port_params, precision):
         scale = float(np.abs(w).max())
         err = float(np.abs(g.float().numpy() - w).max())
         assert err <= tol * scale, (err, scale)
+
+
+# ---------------------------------------------------------------------------
+# The dense output, the head maps and the stem's TPU layouts
+# (posebyte_tpu/models/yolo_pose.py:246-414, layers.py:155-247). Tolerances:
+# forward_raw within 1e-5 of the output's largest magnitude (the heads'
+# 2e-5 bar above, through the DFL expectation and the stride); decode_dense
+# of the same heads within 2e-6 relative plus 2e-4 px
+# (tests/test_torch_preprocess_decode.py says why); the space-to-depth conv
+# and the packed stem within the JAX tests' own 1e-5 (tests/test_models.py:
+# float32 sums in another order); the packed stem's heads within 2e-5 of
+# the plain stem's, as tests/test_models.py holds JAX's.
+# ---------------------------------------------------------------------------
+
+def test_make_anchors_levels_matches():
+    from posebyte_tpu.models.yolo_pose import make_anchors_levels as j_lv
+    from posebyte_tpu_torch.models.yolo_pose import make_anchors_levels
+    for size in (64, 640):
+        for (a, s), (ja, js) in zip(make_anchors_levels(size), j_lv(size)):
+            np.testing.assert_array_equal(a, ja)
+            np.testing.assert_array_equal(s, js)
+
+
+def test_decode_dense_matches_jax():
+    from posebyte_tpu.models.yolo_pose import decode_dense as j_dense
+    from posebyte_tpu_torch.models.yolo_pose import decode_dense
+    rng = np.random.default_rng(4)
+    heads = [rng.normal(0, s, (2, 84, c)).astype(np.float32)
+             for s, c in ((2, 64), (2, 1), (1, 51))]
+    want = np.asarray(j_dense(*map(jnp.asarray, heads), 64))
+    got = decode_dense(*map(torch.from_numpy, heads), 64).numpy()
+    assert got.shape == (2, 56, 84)
+    np.testing.assert_allclose(got, want, rtol=2e-6, atol=2e-4)
+
+
+def test_forward_raw_matches_jax(jax_params, port_params):
+    from posebyte_tpu.models import build_model
+    from posebyte_tpu_torch.models.layers import prepare_params
+    from posebyte_tpu_torch.models.yolo_pose import build_model as t_build
+    x = _inputs(1)
+    apply_fn, _ = build_model("yolov8n-pose")
+    want = np.asarray(jax.jit(apply_fn)(jax_params, jnp.asarray(x)))
+    t_apply, _ = t_build("yolov8n-pose")
+    with torch.inference_mode():
+        got = t_apply(prepare_params(port_params, torch.float32, "cpu"),
+                      torch.from_numpy(x)).numpy()
+    assert got.shape == want.shape == (1, 56, 1344)
+    scale = float(np.abs(want).max())
+    assert float(np.abs(got - want).max()) <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("C,O,H", [(3, 16, 64), (16, 32, 32), (8, 24, 16)])
+def test_conv_s2d_exact(C, O, H):
+    from posebyte_tpu.models import layers as JL
+    from posebyte_tpu_torch.models import layers as L
+    rng = np.random.default_rng(C)
+    p = JL.conv_init(jax.random.PRNGKey(C), C, O, 3)
+    x = rng.normal(size=(2, H, H, C)).astype(np.float32)
+    want = np.asarray(JL.conv_block_s2d(p, jnp.asarray(x)))
+    tp = {"c.w": torch.from_numpy(np.transpose(np.array(p["w"]),
+                                               (3, 2, 0, 1))),
+          "c.b": torch.from_numpy(np.array(p["b"]))}
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2)
+    got = L.conv_block_s2d(tp, "c", xt)
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), want,
+                               rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got, L.conv_block(tp, "c", xt, 2), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_conv_s2d_quantized():
+    """Weight-only int8 (prepare_params dequantises it) against JAX's s2d
+    on the quantised tree."""
+    from posebyte_tpu.models import layers as JL
+    from posebyte_tpu.models.quant import _quantize_conv as j_quantize
+    from posebyte_tpu_torch.models import layers as L
+    from posebyte_tpu_torch.models.quant import quantize_params
+    p = JL.conv_init(jax.random.PRNGKey(0), 16, 32, 3)
+    q = jax.tree.map(jnp.asarray, j_quantize(
+        {k: np.asarray(v) for k, v in p.items()}))
+    x = np.random.default_rng(1).normal(size=(1, 16, 16, 16)) \
+        .astype(np.float32)
+    want = np.asarray(JL.conv_block_s2d(q, jnp.asarray(x)))
+    flat = quantize_params({"c.w": np.transpose(np.asarray(p["w"]),
+                                                (3, 2, 0, 1)),
+                            "c.b": np.asarray(p["b"])})
+    tp = L.prepare_params(flat, torch.float32, "cpu")
+    got = L.conv_block_s2d(tp, "c", torch.from_numpy(x).permute(0, 3, 1, 2))
+    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), want,
+                               rtol=1e-4, atol=1e-5)
+
+
+def test_packed_stem_matches_plain_and_jax():
+    """layers.packed_stem (4 frames a grouped conv) against JAX's
+    block-diagonal packed_stem and the plain stem; forward_heads with
+    packed_stem=4 against the plain heads for both families, and a batch
+    that 4 does not divide through the plain stem, bit for bit."""
+    from posebyte_tpu.models import layers as JL
+    from posebyte_tpu_torch.models import init_params, layers as L
+    from posebyte_tpu_torch.models.yolo_pose import MODEL_CONFIGS
+    x = np.random.default_rng(1).uniform(0, 1, (8, 64, 64, 3)) \
+        .astype(np.float32)
+    xt = torch.from_numpy(x)
+    for name in ("yolov8n-pose", "yolo11n-pose"):
+        flat = init_params(0, name)
+        p = L.prepare_params(flat, torch.float32, "cpu")
+        nchw = xt.permute(0, 3, 1, 2)
+        got = L.packed_stem(p, "b0", "b1", nchw, 4)
+        plain = L.conv_block(p, "b1", L.conv_block(p, "b0", nchw, 2), 2)
+        torch.testing.assert_close(got, plain, rtol=1e-5, atol=1e-5)
+        jp = [{"w": jnp.asarray(np.transpose(flat[f"{k}.w"], (2, 3, 1, 0))),
+               "b": jnp.asarray(flat[f"{k}.b"])} for k in ("b0", "b1")]
+        want = np.asarray(JL.packed_stem(*jp, jnp.asarray(x), 4))
+        np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), want,
+                                   rtol=1e-5, atol=1e-5)
+        fam = MODEL_CONFIGS[name].family
+        with torch.inference_mode():
+            a = forward_heads(p, xt, fam)
+            b = forward_heads(p, xt, fam, packed_stem=4)
+            for ref, out in zip(a, b):
+                torch.testing.assert_close(out, ref, rtol=0, atol=2e-5)
+            c = forward_heads(p, xt[:5], fam, packed_stem=4)
+            for ref, out in zip(forward_heads(p, xt[:5], fam), c):
+                assert torch.equal(ref, out)

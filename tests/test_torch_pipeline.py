@@ -72,12 +72,15 @@ def test_card_is_the_default_device():
 
 
 def test_pipeline_rejects_unported_options():
-    """decode_fusion='tail' is refused; raw_preproc=False (the normalised
-    letterbox into the unfolded model) runs."""
+    """Every option is ported: decode_fusion='tail' (the per-level head
+    maps, tests/test_torch_decode_variants.py) and raw_preproc=False (the
+    normalised letterbox into the unfolded model) both construct and
+    run."""
     params = load_params(ASSET)[0]
-    with pytest.raises(NotImplementedError):
-        PosePipeline(PipelineConfig(detector=DetectorConfig(
-            decode_fusion="tail")), params=params, device="cpu")
+    pipe = PosePipeline(PipelineConfig(detector=DetectorConfig(
+        decode_fusion="tail")), params=params, device="cpu")
+    assert pipe.detector.head_maps is not None
     pipe = PosePipeline(PipelineConfig(detector=DetectorConfig(
         raw_preproc=False)), params=params, device="cpu")
     assert not pipe.config.detector.raw_preproc
+    assert pipe.detector.head_maps is None
