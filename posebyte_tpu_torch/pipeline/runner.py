@@ -55,11 +55,22 @@ from ..ops.tracker_chunk import tracker_chunk
 from ..tracker.output import (TrackOutput, extract_outputs_device,
                              pack_outputs, unpack_outputs)
 from ..tracker.step import tracker_step
+from ..utils.profiling import STAGES
 
 # The activations' type per precision; int8 runs bf16 activations between
 # its w8a8 convolutions, as the JAX runner does.
 _DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16,
            "int8": torch.bfloat16}
+
+
+def _span(name: str) -> record_function:
+    """The profiler range `name`, which utils/profiling.py's STAGES, the one
+    table of the port's range names, must hold: its readers skip those
+    names when they sum kernels. A range costs a few microseconds of host
+    time when no profiler is active."""
+    if name not in STAGES:
+        raise ValueError(f"profiler range {name!r} is not in STAGES")
+    return record_function(name)
 
 
 def frame_tracks(ids, scores, poses, boxes, emit, frame_w: int,
@@ -222,27 +233,27 @@ class Detector:
         # lowering returns exact uint8 either way). The model casts to its
         # dtype.
         lb_dtype = self.dtype if self.embed is None else torch.float32
-        with record_function("letterbox"):
+        with _span("letterbox"):
             imgs = letterbox_flat_nhwc(frames_flat, w, h,
                                        det_cfg.input_size,
                                        out_dtype=lb_dtype,
                                        selection=selection,
                                        raw=det_cfg.raw_preproc)
-        with record_function("model"):
+        with _span("model"):
             if self.head_maps is not None:
                 heads = self.head_maps(self.params, imgs)
             else:
                 heads = self.heads(self.params, imgs)
-        with record_function("decode"):
+        with _span("decode"):
             if self.head_maps is not None:
                 det = _decode_levels(det_cfg, heads)
             else:
                 det = _decode(det_cfg, *heads)
-        with record_function("nms"):
+        with _span("nms"):
             det = _nms(det_cfg, det)
         if self.embed is None:
             return det, None
-        with record_function("reid"):
+        with _span("reid"):
             return det, self.embed(imgs, det.poses)
 
 
@@ -287,10 +298,10 @@ class PosePipeline:
         det, emb = self.detector(frame_flat[None], h, w, selection=False)
         det = Detections(det.poses[0], det.boxes[0], det.scores[0],
                          det.valid[0])
-        with record_function("tracker"):
+        with _span("tracker"):
             state, aux = tracker_step(self.state, det, trk_cfg,
                                       None if emb is None else emb[0])
-        with record_function("outputs"):
+        with _span("outputs"):
             ids, scores, poses, boxes, emit = extract_outputs_device(
                 state, det.scores, trk_cfg)
         out = {"ids": ids, "scores": scores, "poses": poses, "boxes": boxes,
@@ -309,7 +320,7 @@ class PosePipeline:
                 raise ValueError(f"chunk_body({k}, {h}, {w}) got frames "
                                  f"{tuple(frames_flat.shape)}")
             det, emb = self.detector(frames_flat, h, w, selection=True)
-            with record_function("tracker"):
+            with _span("tracker"):
                 return tracker_chunk(state, det, trk_cfg,
                                      det_embeddings=emb)
 
@@ -322,7 +333,7 @@ class PosePipeline:
         counterpart of the JAX package's staged device buffers)."""
         flat = torch.from_numpy(np.ascontiguousarray(
             frames_bgr, dtype=np.uint8).reshape(shape))
-        with record_function("ingest"):
+        with _span("ingest"):
             if self.device.type != "cuda":
                 return flat.to(self.device)
             return flat.pin_memory().to(self.device, non_blocking=True)
@@ -335,12 +346,13 @@ class PosePipeline:
     def process_chunk_device(self, frames_flat: torch.Tensor, h: int,
                              w: int):
         """Run a staged chunk [K, H*W*3]; returns the stacked output
-        tensors on the device (asynchronous on the card)."""
-        k = frames_flat.shape[0]
-        with torch.inference_mode():
+        tensors on the device (asynchronous on the card). The call is the
+        profiler range "chunk", the parent of the stages' ranges."""
+        with _span("chunk"), torch.inference_mode():
+            k = frames_flat.shape[0]
             self.state, outs = self.chunk_body(k, h, w)(self.state,
                                                        frames_flat)
-        self.timing["frames"] += k
+            self.timing["frames"] += k
         return outs
 
     def process_chunk(self, frames_bgr: np.ndarray):
@@ -353,14 +365,18 @@ class PosePipeline:
         """A chunk's outputs -> a list per frame of fetch_outputs' lists.
         The output tensors are packed on the device into one int32 tensor
         (pack_outputs), so that the chunk makes one device-to-host copy;
-        the host unpacks it by views."""
-        with record_function("fetch"):
-            host = unpack_outputs(pack_outputs(outs).cpu().numpy())
-        return [frame_tracks(host["ids"][i], host["scores"][i],
-                             host["poses"][i], host["boxes"][i],
-                             host["emit"][i], frame_w, frame_h,
-                             self.config.detector.input_size)
-                for i in range(len(host["ids"]))]
+        the host unpacks it by views. The call is the profiler range
+        "fetch": the copy, which waits for the chunk, in "fetch.copy",
+        then the per-frame lists in "fetch.tracks"."""
+        with _span("fetch"):
+            with _span("fetch.copy"):
+                host = unpack_outputs(pack_outputs(outs).cpu().numpy())
+            with _span("fetch.tracks"):
+                return [frame_tracks(host["ids"][i], host["scores"][i],
+                                     host["poses"][i], host["boxes"][i],
+                                     host["emit"][i], frame_w, frame_h,
+                                     self.config.detector.input_size)
+                        for i in range(len(host["ids"]))]
 
     def prestage_frame(self, frame_bgr: np.ndarray) -> torch.Tensor:
         """Start the copy of one frame to the device, so that it overlaps
@@ -370,12 +386,14 @@ class PosePipeline:
 
     def process_frame_device(self, frame_flat: torch.Tensor, h: int, w: int,
                              block: bool = False):
-        """Run the per-frame step on a staged frame [H*W*3]."""
-        with torch.inference_mode():
-            self.state, out = self._step(frame_flat, h, w)
-        if block and self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self.timing["frames"] += 1
+        """Run the per-frame step on a staged frame [H*W*3]. The call is
+        the profiler range "frame", the parent of the stages' ranges."""
+        with _span("frame"):
+            with torch.inference_mode():
+                self.state, out = self._step(frame_flat, h, w)
+            if block and self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self.timing["frames"] += 1
         return out
 
     def process_stream(self, frames, sync_depth: int = 2):
@@ -423,7 +441,7 @@ class PosePipeline:
         t0 = time.perf_counter()
         flat = torch.from_numpy(
             np.ascontiguousarray(frame_bgr, dtype=np.uint8).reshape(-1))
-        with record_function("ingest"):
+        with _span("ingest"):
             flat = flat.to(self.device)
         out = self.process_frame_device(flat, h, w, block)
         self.timing["dispatch_ms"] += (time.perf_counter() - t0) * 1e3
@@ -431,13 +449,15 @@ class PosePipeline:
 
     def fetch_outputs(self, out, frame_w: int, frame_h: int):
         """The one device-to-host copy: outputs -> list of TrackOutput in
-        frame coordinates."""
-        with record_function("fetch"):
-            ids, scores, poses, boxes, emit = (
-                out[k].cpu().numpy()
-                for k in ("ids", "scores", "poses", "boxes", "emit"))
-        return frame_tracks(ids, scores, poses, boxes, emit, frame_w,
-                            frame_h, self.config.detector.input_size)
+        frame coordinates. The profiler ranges are fetch_chunk_outputs'."""
+        with _span("fetch"):
+            with _span("fetch.copy"):
+                ids, scores, poses, boxes, emit = (
+                    out[k].cpu().numpy()
+                    for k in ("ids", "scores", "poses", "boxes", "emit"))
+            with _span("fetch.tracks"):
+                return frame_tracks(ids, scores, poses, boxes, emit, frame_w,
+                                    frame_h, self.config.detector.input_size)
 
     def reset(self):
         trk_cfg = self.config.tracker

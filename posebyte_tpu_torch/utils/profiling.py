@@ -3,32 +3,36 @@
     python -m posebyte_tpu_torch.utils.profiling [--frames 32]
     python -m posebyte_tpu_torch.utils.profiling --chunk 128 [--frames 256]
     ... [--reid off|descriptor|head] [--motion cv|kalman136]
-    ... [--precision bf16|int8]
+    ... [--precision bf16|int8] [--model yolov8n-pose|yolo11n-pose]
 
-Runs PosePipeline (yolov8n-pose, 640 input, bf16, raw u8 ingest; the
-trained 640 checkpoint) on synthetic 1280x720 frames: each frame through
-process_frame and fetch_outputs, or with --chunk K each chunk of K frames
-through process_chunk and fetch_chunk_outputs. --warmup frames run first,
-then --frames timed frames with the profiler off, and again with it on;
-with --chunk both count whole chunks (by default one warm-up chunk and two
-timed ones). --reid runs the tracker with Re-ID (reid_weight 0.3): the
-pose-colour descriptor, or the learned head of
-assets/reid-head-synthetic.safetensors. --motion picks the tracker's motion
-model (the cv filter, or the third-order kalman136). --precision int8
-runs the w8a8 path: the checkpoint quantised with PARTIAL_QUANT_SKIP and
-calibrated by percentile on the card over 16 synthetic-scene frames at 640
-(models/quant.py), every quantised conv through Kernel 4. Prints JSON
-lines, every number per frame:
+Runs PosePipeline (yolov8n-pose, or yolo11n-pose with --model; 640 input,
+bf16, raw u8 ingest; the model's trained 640 checkpoint) on synthetic
+1280x720 frames: each frame through process_frame and fetch_outputs, or
+with --chunk K each chunk of K frames through process_chunk and
+fetch_chunk_outputs. --warmup frames run first, then --frames timed frames
+with the profiler off, and again with it on; with --chunk both count
+whole chunks (by default one warm-up chunk and two timed ones). --reid
+runs the tracker with Re-ID (reid_weight 0.3): the pose-colour
+descriptor, or the learned head of assets/reid-head-synthetic.safetensors.
+--motion picks the tracker's motion model (the cv filter, or the
+third-order kalman136). --precision int8 runs the w8a8 path: the
+checkpoint quantised with PARTIAL_QUANT_SKIP and calibrated by percentile
+on the card over 16 synthetic-scene frames at 640 (models/quant.py), every
+quantised conv through Kernel 4. Prints JSON lines, every number per
+frame:
   steady      host wall ms per frame with the profiler off
-  stages      per pipeline stage (the profiler labels of runner.py: ingest,
-              letterbox, model, decode, nms, reid, tracker, outputs, fetch):
-              host ms, and device ms of the kernels launched inside it,
-              per frame, from torch.profiler
+  stages      per range of STAGES (the profiler ranges of runner.py): host
+              ms, and device ms of the kernels launched inside it, per
+              frame, from torch.profiler; a parent's (chunk, frame, fetch:
+              PARENTS) include its children's
   device      device busy ms per frame (sum of kernel and copy times), device
               operations per frame, and the idle share 1 - busy / wall,
               against the profiled and the unprofiled wall time; Kernel
               4's device ms per frame (int8)
-  kernels     the ten kernels with the most device time per frame
+  kernels     the ten kernels with the most device time per frame, and
+              the ten ATen ops with the most self device time (the
+              kernels an op launches itself), which name the op behind a
+              kernel: [op, device ms, calls] per frame
   tracker_stages  (--chunk) Kernel 3's stage clock: the unprofiled run's
               tracker launches made again on their own inputs with the
               clock on, each stage's cycles and share per frame, its us
@@ -63,8 +67,19 @@ from collections import defaultdict
 
 import numpy as np
 
+# The one table of the port's profiler ranges (record_function): runner.py
+# opens none under another name, and whoever sums kernels skips these
+# names (a range's device-side copy is a span with gaps, not busy time).
+# Three are parents; their time includes their children's.
+PARENTS = {
+    "chunk": ("letterbox", "model", "decode", "nms", "reid", "tracker"),
+    "frame": ("letterbox", "model", "decode", "nms", "reid", "tracker",
+              "outputs"),
+    "fetch": ("fetch.copy", "fetch.tracks"),
+}
 STAGES = ("ingest", "letterbox", "model", "decode", "nms", "reid",
-          "tracker", "outputs", "fetch")
+          "tracker", "outputs", "fetch", "chunk", "frame", "fetch.copy",
+          "fetch.tracks")
 
 
 @dataclasses.dataclass
@@ -347,6 +362,9 @@ def main(argv=None) -> int:
                     help="the tracker's motion model")
     ap.add_argument("--precision", choices=("bf16", "int8"), default="bf16",
                     help="int8: the w8a8 path through Kernel 4")
+    ap.add_argument("--model", choices=("yolov8n-pose", "yolo11n-pose"),
+                    default="yolov8n-pose",
+                    help="the model, with its trained 640 checkpoint")
     args = ap.parse_args(argv)
     unit = args.chunk or 1
     if args.frames is None:
@@ -361,10 +379,11 @@ def main(argv=None) -> int:
     root = os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     params, _ = load_params(os.path.join(
-        root, "assets", "yolov8n-pose-synthetic640.safetensors"))
-    cfg = PipelineConfig(precision=args.precision, tracker=TrackerConfig(
-        motion_model=args.motion,
-        reid_weight=0.0 if args.reid == "off" else 0.3))
+        root, "assets", f"{args.model}-synthetic640.safetensors"))
+    cfg = PipelineConfig(
+        model_name=args.model, precision=args.precision,
+        tracker=TrackerConfig(motion_model=args.motion,
+                              reid_weight=0.0 if args.reid == "off" else 0.3))
     if args.precision == "int8":
         from ..models import quant
         from .synthetic import calibration_frames
@@ -391,7 +410,7 @@ def main(argv=None) -> int:
     wall = (time.perf_counter() - t0) * 1e3 / args.frames
     print(json.dumps({"phase": "steady", "frames": args.frames,
                       "chunk": args.chunk, "reid": args.reid,
-                      "motion": args.motion,
+                      "motion": args.motion, "model": args.model,
                       "precision": args.precision,
                       "wall_ms_per_frame": wall,
                       "card": torch.cuda.get_device_name(0)}), flush=True)
@@ -426,8 +445,8 @@ def main(argv=None) -> int:
     measured = busy > 0
     print(json.dumps({"phase": "stages", "per_frame": {
         s: {"host_ms": host[s], "device_ms": dev[s] if measured else None}
-        for s in STAGES}, "profiled_wall_ms_per_frame": prof_wall}),
-        flush=True)
+        for s in STAGES}, "parents_include": PARENTS,
+        "profiled_wall_ms_per_frame": prof_wall}), flush=True)
     print(json.dumps({
         "phase": "device",
         "busy_ms_per_frame": busy if measured else None,
@@ -441,8 +460,14 @@ def main(argv=None) -> int:
         if measured else None}),
         flush=True)
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:10]
+    ops = sorted((e for e in prof.key_averages()
+                  if e.key.startswith("aten::")),
+                 key=lambda e: -e.self_device_time_total)[:10]
     print(json.dumps({"phase": "kernels", "top_device_ms_per_frame": [
-        [name[:80], ms / n] for name, ms in top]}), flush=True)
+        [name[:80], ms / n] for name, ms in top],
+        "top_aten_self_device_ms_per_frame": [
+            [e.key, e.self_device_time_total / 1e3 / n, e.count / n]
+            for e in ops] if measured else None}), flush=True)
     if args.chunk:
         k3 = sum(ms for k, ms in per_kernel.items()
                  if "tracker_chunk" in k) / n if measured else None
