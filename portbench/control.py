@@ -42,8 +42,8 @@ def reference_control(cell, seed: int, levels: int, device, root=ROOT):
     n = chk["start_chunks"] + chk["sampled_chunks"] + int(chk["last_chunk"])
     out = []
     for lv in (None, levels):
-        convs = CK.reference_convs(cfg, params, seed, device, lv)
-        dets = CK.reference_detections(cfg, convs, clip, device)
+        convs = CK.reference_convs(cfg, params, seed, device, lv, root)
+        dets = CK.reference_detections(cfg, convs, clip, device, root=root)
         frames, ends, state = [], [], None
         for c in range(n):
             f, trk = CK.reference_tracks(cfg, dets, sequence_index(tr, c),

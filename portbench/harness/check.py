@@ -43,13 +43,14 @@ import torch
 from ..reference import model as M
 from ..reference import pipeline as P
 from ..reference.scene import calibration_frames
+from .spec import ROOT
 
 NAMES = ("track_err_px", "kp_max_px", "tracks_unmatched", "state_mismatch",
          "conf_max")
 
 
 def reference_convs(config: dict, params: dict, seed: int, device,
-                    levels: int | None = None):
+                    levels: int | None = None, root: str = ROOT):
     """The reference's convs for `config`: float32, or for a quantised
     configuration its w8a8 (levels 127) convs with activation scales
     worked out here again from the calibration frames of `seed`. levels
@@ -62,7 +63,8 @@ def reference_convs(config: dict, params: dict, seed: int, device,
     images = calibration_frames(q["calibration_frames"],
                                 config["input_size"],
                                 q["calibration_persons"], seed)
-    scales = M.calibrate(params, config["family"], images, q["skip"], device)
+    scales = M.calibrate(params, config["family"], images, q["skip"], device,
+                         root=root)
     levels = levels or 127
     act = {k: np.float32(s * np.float32(127.0) / np.float32(levels))
            if levels != 127 else s for k, s in scales.items()}
@@ -70,18 +72,19 @@ def reference_convs(config: dict, params: dict, seed: int, device,
 
 
 def reference_detections(config: dict, convs, frames_u8: np.ndarray,
-                         device, block: int = 32) -> list:
+                         device, block: int = 32, root: str = ROOT) -> list:
     """Per frame, after NMS: (poses [n, 17, 3], boxes [n, 4], scores [n])
     in model input pixels."""
     S = config["input_size"]
     det = config["detector"]
-    anchor_xy, strides = M.anchors(S, device)
+    family = config["family"]
+    anchor_xy, strides = M.anchors(S, device, family, root)
     out = []
     with torch.no_grad():
         for s in range(0, len(frames_u8), block):
             x = P.letterbox(torch.from_numpy(frames_u8[s:s + block])
                             .to(device), S)
-            heads = M.forward(convs, x, config["family"])
+            heads = M.forward(convs, x, family, root)
             for poses, boxes, scores in P.decode(
                     *heads, anchor_xy, strides, det["conf_threshold"],
                     det["max_candidates"]):

@@ -3,8 +3,10 @@
 A cell names a configuration (its `file` in BENCHMARK.json) and a traffic
 mix (portbench/traffic/<traffic>.json); every metric is a reader
 portbench/metrics/<name>.py and every roofline's work counter
-portbench/work/<kernel>.py. Adding any of them adds files and entries;
-nothing here lists them.
+portbench/work/<kernel>.py; a configuration's `family` names its network,
+portbench/reference/nets/<family>.py (the reference's forward) and
+portbench/work/nets/<family>.py (its conv table). Adding any of them adds
+files and entries; nothing here lists them.
 """
 from __future__ import annotations
 
@@ -60,9 +62,13 @@ def load_cell(name: str, root: str = ROOT) -> Cell:
 
 def load_module(kind: str, name: str, root: str = ROOT):
     """portbench/<kind>/<name>.py as a module (a metric's reader, a
-    kernel's work counter)."""
+    kernel's work counter, a network: kind "reference/nets" or
+    "work/nets"). A missing file raises FileNotFoundError naming it."""
     path = os.path.join(root, "portbench", kind, name + ".py")
-    mod_name = f"portbench_{kind}_{name}".replace(".", "_").replace("-", "_")
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f"no {kind} {name!r}: {path} does not exist")
+    mod_name = "".join(c if c.isalnum() else "_"
+                       for c in f"portbench_{kind}_{name}")
     spec = importlib.util.spec_from_file_location(mod_name, path)
     mod = importlib.util.module_from_spec(spec)
     sys.modules[mod_name] = mod       # dataclasses look their module up

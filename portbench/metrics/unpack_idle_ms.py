@@ -1,6 +1,6 @@
 """Idle ms a chunk of the card under the program's "fetch.tracks" range:
 the host turning a fetched chunk's outputs into per-frame track lists
-(frame_tracks in fetch_chunk_outputs, pipeline/runner.py) while, one
+(chunk_tracks in fetch_chunk_outputs, pipeline/runner.py) while, one
 chunk in flight, the card waits for the next chunk. An idle gap counts
 under the innermost range open at its midpoint (harness/trace.py). None
 untraced, and where the program's table of range names

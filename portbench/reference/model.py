@@ -1,14 +1,15 @@
-"""The plain reference of the two pose models, in float32 PyTorch: the
-YOLOv8-pose and YOLO11-pose networks of Ultralytics' yolov8-pose.yaml and
-yolo11-pose.yaml at the scale a configuration file names, on a checkpoint
-read here from its safetensors bytes.
+"""The plain reference of the pose models, in float32 PyTorch, on a
+checkpoint read here from its safetensors bytes. A configuration's
+`family` names its network, portbench/reference/nets/<family>.py (v8:
+Ultralytics' yolov8-pose.yaml, v11: yolo11-pose.yaml), written out layer
+by layer from the published definition at the scale the configuration
+names, on the blocks here.
 
 Every conv is Ultralytics' Conv with its BatchNorm already folded into
 the weights and bias (the checkpoints hold them folded): conv, then SiLU
-where the block has one. The network is written out layer by layer from
-the published definitions (C2f, C3k2, C3k, SPPF, C2PSA, the pose head with
-DFL and, in YOLO11, depthwise class branches); nothing of the program
-under test is imported.
+where the block has one. The blocks follow the published definitions
+(Bottleneck, C2f, C3, C3k2, SPPF, Attention, C2PSA, the head's plain
+branch); nothing of the program under test is imported.
 
 A `Convs` object runs each conv, so that one forward serves four needs:
 float32 (the reference), w8a8 and w4a4 fake-quantised convs with exact
@@ -23,6 +24,8 @@ import struct
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..harness.spec import ROOT, load_module
 
 REG_MAX = 16
 NK = 51
@@ -220,66 +223,40 @@ def up(x):
     return F.interpolate(x, scale_factor=2, mode="nearest")
 
 
-def backbone_neck(cv, x, family):
-    x = conv_act(cv, "b1", conv_act(cv, "b0", x, 2), 2)
-    if family == "v8":
-        x = c2f(cv, "b2", x, True)
-        p3 = c2f(cv, "b4", conv_act(cv, "b3", x, 2), True)
-        p4 = c2f(cv, "b6", conv_act(cv, "b5", p3, 2), True)
-        x = c2f(cv, "b8", conv_act(cv, "b7", p4, 2), True)
-        p5 = sppf(cv, "b9", x)
-        n4 = c2f(cv, "h12", torch.cat([up(p5), p4], 1), False)
-        o3 = c2f(cv, "h15", torch.cat([up(n4), p3], 1), False)
-        o4 = c2f(cv, "h18", torch.cat([conv_act(cv, "h16", o3, 2), n4], 1),
-                 False)
-        o5 = c2f(cv, "h21", torch.cat([conv_act(cv, "h19", o4, 2), p5], 1),
-                 False)
-        return o3, o4, o5
-    x = c3k2(cv, "b2", x)
-    p3 = c3k2(cv, "b4", conv_act(cv, "b3", x, 2))
-    p4 = c3k2(cv, "b6", conv_act(cv, "b5", p3, 2))
-    x = c3k2(cv, "b8", conv_act(cv, "b7", p4, 2))
-    p5 = c2psa(cv, "b10", sppf(cv, "b9", x))
-    n4 = c3k2(cv, "h13", torch.cat([up(p5), p4], 1))
-    o3 = c3k2(cv, "h16", torch.cat([up(n4), p3], 1))
-    o4 = c3k2(cv, "h19", torch.cat([conv_act(cv, "h17", o3, 2), n4], 1))
-    o5 = c3k2(cv, "h22", torch.cat([conv_act(cv, "h20", o4, 2), p5], 1))
-    return o3, o4, o5
+def head_branch(cv, name, i, x):
+    """The head's plain branch `name` at level i: two 3x3 convs with
+    SiLU, then a 1x1 conv."""
+    k = f"head.{name}.{i}"
+    y = conv_act(cv, f"{k}.1", conv_act(cv, f"{k}.0", x))
+    return cv(f"{k}.2", y)
 
 
-def head_level(cv, i, x, family):
-    def branch(name):
-        k = f"head.{name}.{i}"
-        y = conv_act(cv, f"{k}.1", conv_act(cv, f"{k}.0", x))
-        return cv(f"{k}.2", y)
-
-    if family == "v11":
-        k = f"head.cv3.{i}"
-        c = F.silu(cv(f"{k}.0_dw", x, 1, x.shape[1]))
-        c = conv_act(cv, f"{k}.0_pw", c)
-        c = F.silu(cv(f"{k}.1_dw", c, 1, c.shape[1]))
-        c = conv_act(cv, f"{k}.1_pw", c)
-        cls = cv(f"{k}.2", c)
-    else:
-        cls = branch("cv3")
-    return branch("cv2"), cls, branch("cv4")
+def network(family: str, root: str = ROOT):
+    """The network of `family`: portbench/reference/nets/<family>.py
+    under `root`, with STRIDES (one a pyramid level, in order),
+    pyramid(cv, x) -> the levels' feature maps, and head(cv, i, x) -> the
+    box, class and keypoint logits at level i."""
+    return load_module("reference/nets", family, root)
 
 
-def forward(cv, x_nchw: torch.Tensor, family: str):
+def forward(cv, x_nchw: torch.Tensor, family: str, root: str = ROOT):
     """Normalised RGB images [B, 3, S, S] -> (box logits [B, A, 64], class
     logits [B, A, 1], raw keypoints [B, A, 51]), anchors row-major per
     level in stride order."""
-    outs = [[], [], []]
-    for i, f in enumerate(backbone_neck(cv, x_nchw, family)):
-        for j, t in enumerate(head_level(cv, i, f, family)):
+    net = network(family, root)
+    levels = net.pyramid(cv, x_nchw)
+    outs = [[] for _ in range(3)]
+    for i, f in enumerate(levels):
+        for j, t in enumerate(net.head(cv, i, f)):
             outs[j].append(t.flatten(2).transpose(1, 2))
     return tuple(torch.cat(o, 1) for o in outs)
 
 
-def anchors(input_size: int, device):
-    """Anchor centres [A, 2] (grid units) and strides [A]."""
+def anchors(input_size: int, device, family: str, root: str = ROOT):
+    """Anchor centres [A, 2] (grid units) and strides [A], over the
+    network's STRIDES."""
     pts, strides = [], []
-    for s in (8, 16, 32):
+    for s in network(family, root).STRIDES:
         n = input_size // s
         c = torch.arange(n, dtype=torch.float32, device=device) + 0.5
         gy, gx = torch.meshgrid(c, c, indexing="ij")
@@ -289,7 +266,7 @@ def anchors(input_size: int, device):
 
 
 def calibrate(params: dict, family: str, images: np.ndarray, skip,
-              device, batch: int = 16) -> dict:
+              device, batch: int = 16, root: str = ROOT) -> dict:
     """Activation scales of the quantised convs: the forward on
     weight-quantised (int8, dequantised) float32 weights over normalised
     RGB images [N, S, S, 3], each conv's scale max over batches of the
@@ -302,5 +279,5 @@ def calibrate(params: dict, family: str, images: np.ndarray, skip,
         for s in range(0, len(images), batch):
             x = torch.from_numpy(np.ascontiguousarray(
                 images[s:s + batch])).to(device).permute(0, 3, 1, 2)
-            forward(cv, x, family)
+            forward(cv, x, family, root)
     return {k: np.float32(max(max(v), 1e-6) / 127.0) for k, v in rec.items()}

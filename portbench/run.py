@@ -253,8 +253,8 @@ def main(argv=None, device=None, root=ROOT, program_config=None):
 
     t_ref = time.perf_counter()
     params = CK.M.read_checkpoint(os.path.join(root, cfg["checkpoint"]))
-    convs = CK.reference_convs(cfg, params, args.seed, dev)
-    dets = CK.reference_detections(cfg, convs, clip, dev)
+    convs = CK.reference_convs(cfg, params, args.seed, dev, root=root)
+    dets = CK.reference_detections(cfg, convs, clip, dev, root=root)
     segments = []
     for cs, state in runs:
         prog, ref, pairs = [], [], []

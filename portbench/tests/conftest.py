@@ -17,7 +17,7 @@ TINY = {"name": "tiny", "width": 640, "height": 360, "clip_frames": 4,
 @pytest.fixture(scope="session")
 def tiny_root(tmp_path_factory):
     """A root holding BENCHMARK.json with every cell on the traffic "tiny"
-    (the cells' own mix at 640x360, chunks of 4 frames), the first cell
+    (the first cell's mix at 640x360, chunks of 4 frames), the first cell
     once more as "host-tiny" on the same mix fed from host memory, the
     benchmark's files and the checkpoints."""
     root = tmp_path_factory.mktemp("root")
@@ -27,9 +27,10 @@ def tiny_root(tmp_path_factory):
     os.symlink(os.path.join(ROOT, "assets"), root / "assets")
     with open(os.path.join(ROOT, "BENCHMARK.json")) as f:
         spec = json.load(f)
+    with open(bench / "traffic" / f"{spec['workloads'][0]['traffic']}.json") \
+            as f:
+        traffic = {**json.load(f), **TINY}
     for w in spec["workloads"]:
-        with open(bench / "traffic" / f"{w['traffic']}.json") as f:
-            traffic = {**json.load(f), **TINY}
         w["traffic"] = "tiny"
     with open(bench / "traffic" / "tiny.json", "w") as f:
         json.dump(traffic, f)

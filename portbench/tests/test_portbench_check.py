@@ -13,6 +13,7 @@ from posebyte_tpu_torch.core.structs import Detections
 from posebyte_tpu_torch.pipeline import runner as R
 
 V8, V11 = "v8n-bf16-dev720-c128", "v11n-int8-dev720-c128"
+V8_1080 = "v8n-bf16-dev1080-c128"
 
 
 def _run(root, cell=V8, seed=20260419, **kw):
@@ -62,12 +63,14 @@ def test_answer_altered_fails(tiny_root, monkeypatch):
     assert not _run(tiny_root)["correct"]
 
 
-def test_v8n_control_fails(tiny_root):
-    """The bf16 cell's control: the program's own int8 path."""
-    cell = spec.load_cell(V8, tiny_root)
-    ctl = cell.check["control"]
+@pytest.mark.parametrize("cell", [V8, V8_1080])
+def test_v8n_control_fails(tiny_root, cell):
+    """The bf16 cells' control: the program's own int8 path."""
+    c = spec.load_cell(cell, tiny_root)
+    ctl = c.check["control"]
     assert ctl["kind"] == "program"
-    res = _run(tiny_root, program_config={**cell.config, **ctl["config"]})
+    res = _run(tiny_root, cell,
+               program_config={**c.config, **ctl["config"]})
     assert not res["correct"]
 
 

@@ -1,6 +1,6 @@
 """The benchmark's own operation counter against PyTorch's FLOP counter
 over the plain reference's forward, and its conv table against the
-checkpoints."""
+checkpoints, for every configuration BENCHMARK.json names."""
 import json
 import os
 
@@ -12,11 +12,13 @@ from portbench.harness.spec import ROOT
 from portbench.reference import model as M
 from portbench.work import model_flops as MF
 
-CONFIGS = ["yolov8n-pose-640", "yolo11n-pose-640-w8a8"]
+with open(os.path.join(ROOT, "BENCHMARK.json")) as f:
+    FILES = {c["name"]: c["file"] for c in json.load(f)["configs"]}
+CONFIGS = list(FILES)
 
 
 def _config(name):
-    with open(os.path.join(ROOT, "portbench", "configs", name + ".json")) as f:
+    with open(os.path.join(ROOT, FILES[name])) as f:
         return json.load(f)
 
 

@@ -1,11 +1,14 @@
 """The forward's operations, counted from the configuration's published
-layer shapes (Ultralytics' yolov8-pose.yaml / yolo11-pose.yaml at the
-file's depth, width and channel cap), never from the program.
+layer shapes (the network its `family` names, portbench/work/nets/
+<family>.py: v8 Ultralytics' yolov8-pose.yaml, v11 yolo11-pose.yaml, at
+the file's depth, width and channel cap), never from the program. The
+network's file is written apart from the reference's
+(portbench/reference/nets/), so that the two check each other.
 
 conv_table(config) lists every conv of the network with its key (the
 checkpoint's), input and output channels, kernel, stride, groups and
-output size at the configuration's input; matmuls(config) the
-attention's two batched products. Operations are 2 per multiply-add, as
+output size at the configuration's input; matmul_ops(config) the
+attention's batched products. Operations are 2 per multiply-add, as
 torch.utils.flop_counter counts them; biases, activations, pooling and
 the decode are not counted.
 """
@@ -13,6 +16,13 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
+
+from portbench.harness.spec import load_module
+
+# the root of the checkout this file was loaded from
+_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,7 +112,9 @@ class _Net:
             self.mm += [2 * heads * N * N * kd, 2 * heads * hd * N * N]
         self.conv(key + ".cv2", 2 * c, c1, 1, hw)
 
-    def head(self, chs, hws, v11):
+    def head(self, chs, hws, depthwise_cls):
+        """The pose head over the levels' channels and sizes, with
+        depthwise-separable class branches where depthwise_cls."""
         reg = 4 * self.cfg["reg_max"]
         nk = self.cfg["kpt_shape"][0] * self.cfg["kpt_shape"][1]
         c2 = max(16, chs[0] // 4, reg)
@@ -113,7 +125,7 @@ class _Net:
             self.conv(f"head.cv2.{i}.1", c2, c2, 3, hw)
             self.conv(f"head.cv2.{i}.2", c2, reg, 1, hw)
             k = f"head.cv3.{i}"
-            if v11:
+            if depthwise_cls:
                 self.conv(k + ".0_dw", ch, ch, 3, hw, groups=ch)
                 self.conv(k + ".0_pw", ch, c3, 1, hw)
                 self.conv(k + ".1_dw", c3, c3, 3, hw, groups=c3)
@@ -127,44 +139,16 @@ class _Net:
             self.conv(f"head.cv4.{i}.2", c4, nk, 1, hw)
 
 
+def network(family: str):
+    """The conv table of `family`: portbench/work/nets/<family>.py
+    beside this file, whose build(net) adds the network's convs and
+    attention products to a _Net in the forward's order."""
+    return load_module("work/nets", family, _ROOT)
+
+
 def _build(config) -> _Net:
     net = _Net(config)
-    ch, n = net.ch, net.n
-    hw = net.conv("b0", 3, ch(64), 3, config["input_size"], 2)
-    hw = net.conv("b1", ch(64), ch(128), 3, hw, 2)
-    if config["family"] == "v8":
-        net.c2f("b2", ch(128), ch(128), n(3), hw)
-        h3 = net.conv("b3", ch(128), ch(256), 3, hw, 2)
-        net.c2f("b4", ch(256), ch(256), n(6), h3)
-        h4 = net.conv("b5", ch(256), ch(512), 3, h3, 2)
-        net.c2f("b6", ch(512), ch(512), n(6), h4)
-        h5 = net.conv("b7", ch(512), ch(1024), 3, h4, 2)
-        net.c2f("b8", ch(1024), ch(1024), n(3), h5)
-        net.sppf("b9", ch(1024), ch(1024), h5)
-        net.c2f("h12", ch(1024) + ch(512), ch(512), n(3), h4)
-        net.c2f("h15", ch(512) + ch(256), ch(256), n(3), h3)
-        net.conv("h16", ch(256), ch(256), 3, h3, 2)
-        net.c2f("h18", ch(256) + ch(512), ch(512), n(3), h4)
-        net.conv("h19", ch(512), ch(512), 3, h4, 2)
-        net.c2f("h21", ch(512) + ch(1024), ch(1024), n(3), h5)
-        net.head((ch(256), ch(512), ch(1024)), (h3, h4, h5), False)
-        return net
-    net.c3k2("b2", ch(128), ch(256), n(2), False, hw, e=0.25)
-    h3 = net.conv("b3", ch(256), ch(256), 3, hw, 2)
-    net.c3k2("b4", ch(256), ch(512), n(2), False, h3, e=0.25)
-    h4 = net.conv("b5", ch(512), ch(512), 3, h3, 2)
-    net.c3k2("b6", ch(512), ch(512), n(2), True, h4)
-    h5 = net.conv("b7", ch(512), ch(1024), 3, h4, 2)
-    net.c3k2("b8", ch(1024), ch(1024), n(2), True, h5)
-    net.sppf("b9", ch(1024), ch(1024), h5)
-    net.c2psa("b10", ch(1024), n(2), h5)
-    net.c3k2("h13", ch(1024) + ch(512), ch(512), n(2), False, h4)
-    net.c3k2("h16", ch(512) + ch(512), ch(256), n(2), False, h3)
-    net.conv("h17", ch(256), ch(256), 3, h3, 2)
-    net.c3k2("h19", ch(256) + ch(512), ch(512), n(2), False, h4)
-    net.conv("h20", ch(512), ch(512), 3, h4, 2)
-    net.c3k2("h22", ch(512) + ch(1024), ch(1024), n(2), True, h5)
-    net.head((ch(256), ch(512), ch(1024)), (h3, h4, h5), True)
+    network(config["family"]).build(net)
     return net
 
 
